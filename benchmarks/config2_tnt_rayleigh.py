@@ -2,8 +2,7 @@
 
 The headline benchmark — identical to bench.py (single source of truth):
 TNT through the single-synchronization flat CG engine; value = CG
-iterations/s vs the judge's 1.7x-of-round-1 target.  See bench.py for the
-full methodology.
+iterations/s.  See bench.py for the full methodology.
 """
 
 import bench

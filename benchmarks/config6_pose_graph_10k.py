@@ -9,16 +9,7 @@ dual certificate with LOBPCG.
 
 Metric: end-to-end certified-solve wall seconds (excluding file synthesis;
 INCLUDING the first-call compiles — this is the cold single-shot
-production path).  Round-3 final (TPU v5e, inner_engine="cg", chol-RR
-certificate default): cold 127 s, TNT 11 outer / 84 cg (the
-step_decision guard trims the noise-floor tail; previously 15/134),
-certified, rot_err 0.0055.  Stage split
-(benchmarks/probe_pose_stages.py): the pipeline is CERTIFICATE-bound —
-TNT is 2.5 s warm / 91 s cold; the certificate 11 s warm, and its
-eigh-RR compile (114 s) was half the cold wall until the chol-RR
-default (25 s compile, fewer iterations, certifies).  (The s-step flat
-inner engine was A/B'd here and lost 11x warm — see
-pose_sync._weighted_laplacian_solver's docstring.)
+production path).  ``benchmarks/probe_pose_stages.py`` splits it by stage.
 vs_baseline = quality parity: 1.0 when the gauge-aligned rotation error is
 at the injected noise floor AND the solution certifies as a global optimum
 of the relaxation.
@@ -39,9 +30,16 @@ from optimization_tpu.models import pose_sync, rotation_sync as rs
 
 
 def synthesize(n=10_000, extra=20_000, noise=0.01, seed=0):
+    """(graph, R_true, t_true): a random SE(3) pose graph, a spanning path
+    plus ``extra`` random edges, with rotation and translation noise of
+    scale ``noise``.  Products run at full f32 precision on every device,
+    so the ground truth does not depend on where it was made."""
+    hi = jax.lax.Precision.HIGHEST
     rng = np.random.default_rng(seed)
     key = jax.random.PRNGKey(seed)
-    R_true = rs.ROTATIONS.rand(key, n, 3, 3).astype(jnp.float64)
+    # f64 where jax_enable_x64 is on, else f32
+    wide = jax.dtypes.canonicalize_dtype(jnp.float64)
+    R_true = rs.ROTATIONS.rand(key, n, 3, 3).astype(wide)
     t_true = jnp.asarray(rng.normal(size=(n, 3)) * 5.0)
 
     src = np.concatenate([np.arange(n - 1), rng.integers(0, n, extra)])
@@ -52,12 +50,14 @@ def synthesize(n=10_000, extra=20_000, noise=0.01, seed=0):
     E = src.shape[0]
 
     Rt = jnp.swapaxes(R_true, -1, -2)
-    Mij = jnp.einsum("eij,ejk->eik", Rt[src], R_true[dst])
-    tij = jnp.einsum("eij,ej->ei", Rt[src], t_true[dst] - t_true[src])
+    Mij = jnp.einsum("eij,ejk->eik", Rt[src], R_true[dst], precision=hi)
+    tij = jnp.einsum("eij,ej->ei", Rt[src], t_true[dst] - t_true[src],
+                     precision=hi)
     w = noise * jnp.asarray(rng.normal(size=(E, 3, 3)))
     skew = 0.5 * (w - jnp.swapaxes(w, -1, -2))
-    pert = rs._orthonormalize(jnp.eye(3) + skew + 0.5 * (skew @ skew))
-    Mij = pert @ Mij
+    pert = rs._orthonormalize(
+        jnp.eye(3) + skew + 0.5 * jnp.matmul(skew, skew, precision=hi))
+    Mij = jnp.matmul(pert, Mij, precision=hi)
     tij = tij + noise * jnp.asarray(rng.normal(size=(E, 3)))
 
     graph = g2o.PoseGraph(

@@ -34,11 +34,9 @@ def main():
         preconditioned_gradient_tolerance=0.0, max_TPCG_iterations=100)
 
     problem = mc.make_problem()
-    res = tnt.solve(problem, U0, params, data=data)     # compile + warm
-    float(res.f)
+    jax.block_until_ready(tnt.solve(problem, U0, params, data=data))  # warm
     t0 = time.perf_counter()
-    res = tnt.solve(problem, U0, params, data=data)
-    float(res.f)                                        # host transfer closes
+    res = jax.block_until_ready(tnt.solve(problem, U0, params, data=data))
     wall = time.perf_counter() - t0
 
     M_hat = mc.predict(res.x, data)

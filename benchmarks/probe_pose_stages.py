@@ -1,49 +1,30 @@
-"""Stage-split of config6's certified 10^4-pose pipeline (run on real TPU).
+"""Stage-split of config6's certified 10^4-pose pipeline.
 
-config6 reports one end-to-end wall (cold ~130 s / warm ~29.6 s round 3)
-but the pipeline has five stages — g2o load, spectral init, marginalized
-TNT, LSQR translations, LOBPCG dual certificate — and the roadmap's "the
-solve is init/compile/cert-bound" attribution is an inference, not a
-measurement.  This probe times each stage twice (cold = first call incl.
+config6 reports one end-to-end wall, but the pipeline has five stages —
+g2o load, spectral init, marginalized TNT, LSQR translations, LOBPCG dual
+certificate.  This probe times each stage twice (cold = first call incl.
 compile, warm = second call on the same shapes) so optimization effort
 goes where the warm seconds actually are.
 
 Stages mirror ``pose_sync.solve_pose_graph(marginalized=True,
 certify=True)`` exactly (same data, dtype, params, default
-scatter_method), so stage sums reconcile against config6's wall.
-
-Measured (TPU v5e, 2026-08-18; cold incl. compile / warm):
-
-  g2o load (native)         0.72 s
-  spectral init            48.6 / 4.70 s
-  marginalized TNT         91.3 / 2.48 s   (11 outer / 84 cg)
-  LSQR translations        13.0 / 1.07 s
-  certificate eigh-RR     113.6 / 11.62 s  (181 LOBPCG iters)
-  certificate chol-RR      25.2 / 10.94 s  (147 iters, certified)
-
-Verdict: the pipeline is CERTIFICATE-bound, not solver-bound — the TNT
-everyone optimizes is 2.5 s warm; the certificate's LOBPCG pays ~73
-ms/iteration because every operator application contains the nested
-400-iteration Laplacian CG solve.  The eigh-RR certificate's compile
-alone is half the cold wall, so the marginalized pipeline now defaults
-to the chol-RR certificate (solve_pose_graph).
-
-A cert block-size sweep (same operator, chol RR) ruled out the nx
-lever: iterations are GAP-limited, not basis-limited (nx=8: 127 iters /
-12.2 s warm; nx=16: 133 iters / 36.3 s — per-iteration cost scales with
-the 3nx nested-CG columns, so bigger blocks only multiply the dominant
-cost).  nx=8 stays the default.
+scatter_method), so stage sums reconcile against config6's wall.  Every
+certificate operator application contains the nested Laplacian CG solve,
+which is why the certificate arms (eigh RR, chol RR, loose projector) are
+timed separately.  Not measured on the H100 yet.
 
 Usage: ``python benchmarks/probe_pose_stages.py [cert_fast]``
 (``cert_fast`` adds a second certificate timing with the one-eigh
 shifted-Cholesky RR — ``solve_pose_graph(cert_fast=True)``).
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/benchmarks")
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
 
 import jax
 import jax.numpy as jnp
@@ -55,18 +36,12 @@ from optimization_tpu.models import pose_sync, rotation_sync as rs
 from optimization_tpu.solvers import tnt
 
 
-def _mat(x):
-    for leaf in jax.tree_util.tree_leaves(x):
-        if hasattr(leaf, "ndim"):
-            np.asarray(leaf.ravel()[:1] if leaf.ndim else leaf)
-
-
 def stage(name, fn, reps=2):
     outs, times = None, []
     for _ in range(reps):
         t0 = time.perf_counter()
         outs = fn()
-        _mat(outs)
+        jax.block_until_ready(outs)
         times.append(time.perf_counter() - t0)
     cold, warm = times[0], min(times[1:]) if len(times) > 1 else times[0]
     print(f"{name:28s} cold {cold:7.2f} s   warm {warm:7.2f} s", flush=True)
@@ -123,7 +98,7 @@ def main():
           f"lam_min={float(cert.lam_min):.2e} "
           f"iters={int(cert.num_iterations)}", flush=True)
 
-    # Round-5 production path (VERDICT round 4, next 4): the certificate
+    # The production path: the certificate
     # operator's nested projector CG runs LOOSE (rtol 1e-4, cap 60 vs the
     # optimizer's 50 eps / 400) — the lam_min sign decision carries
     # eta ~ 1.2e-4 |L| of slack in f32, decision parity pinned by

@@ -1,9 +1,10 @@
-"""Edge->vertex accumulation A/B at config6 scale (run on the real TPU).
+"""Edge->vertex accumulation A/B at config6 scale.
 
 config6's marginalized SE-Sync pipeline is gather/scatter bound: every
 inner-CG iteration (nested Laplacian solve) and every Hv applies
-``out.at[idx].add()`` scatters over E ~ 3e4 edges.  XLA lowers
-duplicate-index scatter conservatively on TPU, so this probe measures the
+``out.at[idx].add()`` scatters over E ~ 3e4 edges.  XLA may lower
+duplicate-index scatter conservatively (serialized, or with atomics on a
+GPU), so this probe measures the
 three strategies of ``models/graph.edge_accumulator`` on the REAL hot
 chains:
 
@@ -41,20 +42,14 @@ REPS = 3
 DT = jnp.float32
 
 
-def _materialize(out):
-    for leaf in jax.tree_util.tree_leaves(out):
-        if hasattr(leaf, "ndim"):
-            np.asarray(leaf.ravel()[:1] if leaf.ndim else leaf)
-
-
 def timeit(fn, *args):
     out = fn(*args)
-    _materialize(out)
+    jax.block_until_ready(out)
     best = float("inf")
     for _ in range(REPS):
         t0 = time.perf_counter()
         out = fn(*args)
-        _materialize(out)
+        jax.block_until_ready(out)
         best = min(best, time.perf_counter() - t0)
     return best
 

@@ -1,4 +1,4 @@
-"""Run every benchmark config; one JSON line each (BASELINE.md configs 1-5).
+"""Run every benchmark config; one JSON line each.
 
 Usage:  python benchmarks/run_all.py [--quick]
 
@@ -7,9 +7,10 @@ for checking a chip/runtime before committing to the full ~15-minute
 sweep (configs 6 and 8 each solve a large pose problem).
 """
 
-import runpy
 import os
+import runpy
 import sys
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -28,7 +29,6 @@ CONFIGS = [
     "config10_lobpcg_fleet",
     "config11_hv_roofline",
     "config12_escalation",
-    "config13_streamed_prec",
 ]
 
 QUICK = ["config1_gd_rosenbrock", "config2_tnt_rayleigh",
@@ -36,15 +36,23 @@ QUICK = ["config1_gd_rosenbrock", "config2_tnt_rayleigh",
 
 
 def main(argv=None):
+    """Run the configs; returns 1 if any of them raised, else 0."""
     argv = sys.argv[1:] if argv is None else argv
     names = QUICK if "--quick" in argv else CONFIGS
+    failed = []
     for name in names:
         print(f"# {name}", file=sys.stderr, flush=True)
         try:
             runpy.run_module(name, run_name="__main__")
-        except Exception as e:  # keep going; a failed config prints an error line
-            print(f"# {name} FAILED: {e}", file=sys.stderr, flush=True)
+        except Exception:  # keep going; report every failed config
+            traceback.print_exc()
+            print(f"# {name} FAILED", file=sys.stderr, flush=True)
+            failed.append(name)
+    if failed:
+        print(f"# failed configs: {', '.join(failed)}", file=sys.stderr,
+              flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

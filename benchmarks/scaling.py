@@ -3,11 +3,12 @@
 Measures aggregate solver throughput (TNT outer iterations/s across the
 fleet) as the mesh grows with the workload (fixed instances *per device*),
 and reports weak-scaling efficiency vs the 1-device run (north-star target
->= 0.85).  On a multi-chip TPU slice this exercises ICI; on a single-chip or
-CPU host it runs over virtual devices (methodology check — true scaling
-numbers require real chips).
+>= 0.85).  On several GPUs this exercises their interconnect; on a
+single-device or CPU host it runs over virtual devices (methodology check
+— true scaling numbers require real devices).
 
-Usage:  python benchmarks/scaling.py [--devices 8] [--fake-cpu]
+Usage:  python benchmarks/scaling.py [--devices 8]
+        JAX_PLATFORMS=cpu python benchmarks/scaling.py --fake-cpu
 Prints ONE JSON line with the efficiency at the largest mesh.
 """
 
@@ -63,17 +64,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--fake-cpu", action="store_true",
-                    help="run on virtual CPU devices (methodology check)")
+                    help="split the CPU into --devices virtual devices "
+                         "(methodology check; run with JAX_PLATFORMS=cpu)")
     ap.add_argument("--per-device", type=int, default=4)
     ap.add_argument("--n", type=int, default=48,
                     help="rotations per instance")
     args = ap.parse_args()
 
-    # NB: the backend must be configured before anything initializes it
-    # (len(jax.devices()) counts as initialization), so --fake-cpu is an
-    # explicit opt-in rather than an auto-fallback.
+    # NB: the CPU device count must be set before anything initializes the
+    # backend (len(jax.devices()) counts as initialization).
     if args.fake_cpu:
-        jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.devices or 8)
     n_dev = args.devices or len(jax.devices())
 

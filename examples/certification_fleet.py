@@ -4,18 +4,18 @@ instances in lockstep on one chip.
 The user story: a mapping / SfM pipeline produces a stream of rotation
 synchronization problems over the SAME measurement topology (e.g. one
 session per day over a fixed camera rig).  Single-instance solves at these
-sizes are dispatch/latency-bound on TPU, so the fleet path batches the
-ENTIRE pipeline — spectral init, TNT trust-region solve, and the SE-Sync
-global-optimality certificate — with one ``jax.vmap`` into fused batched
-GEMMs (reference context: the certificate's LOBPCG plays exactly the role
-``LOBPCG.h`` plays in the reference ecosystem; the solver stack is
-``TNT.h`` + ``IterativeSolvers.h``).
+sizes are dispatch/latency-bound on an accelerator, so the fleet path
+batches the ENTIRE pipeline — spectral init, TNT trust-region solve, and
+the SE-Sync global-optimality certificate — with one ``jax.vmap`` into
+fused batched GEMMs (reference context: the certificate's LOBPCG plays
+exactly the role ``LOBPCG.h`` plays in the reference ecosystem; the solver
+stack is ``TNT.h`` + ``IterativeSolvers.h``).
 
 Scaling story beyond one chip: the same vmapped fleet shards over a device
 mesh's batch axis unchanged (tests/test_parallel.py::
 test_dp_sharded_lobpcg_fleet_matches_single_device pins bitwise equality).
 
-Run:  python examples/certification_fleet.py  (CPU or TPU; f32 on TPU)
+Run:  python examples/certification_fleet.py  (f32; JAX_ENABLE_X64=1 for f64)
 """
 
 from _common import setup

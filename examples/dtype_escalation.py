@@ -5,11 +5,11 @@ detector fires, promote the carry to f32 (with the zero-tangent
 re-retraction back onto the manifold), and finish to the reference's
 |grad| tolerance (``TNT.h:122-125``) — reference termination semantics
 at (mostly) the low tier's speed.  ``benchmarks/config12_escalation.py``
-measures the hardware speedup (6.28x vs pure f32 at n=2^24 on v5e);
+measures the speedup on the device (not measured on the H100 yet);
 this example shows the user-facing API and the staged traces at a
 CPU-friendly size.
 
-Run: python examples/dtype_escalation.py   [OPTTPU_PLATFORM=cpu]
+Run: python examples/dtype_escalation.py   [JAX_PLATFORMS=cpu]
 """
 
 import time

@@ -2,7 +2,7 @@
 
 Mirrors ``examples/LOBPCG_example.cpp`` (diagonal spectrum, m=500, nx=10,
 nev=5, tau=1e-6) and scales to the benchmark's 10^5-dim operator (a 1-D
-Laplacian stencil — matrix-free, HBM-bandwidth-bound on TPU).
+Laplacian stencil — matrix-free, memory-bandwidth-bound on an accelerator).
 Run: python examples/lobpcg_example.py
 """
 

@@ -19,7 +19,7 @@ Mechanics this exercises (all public seams):
 - ``certify(..., rr_method="chol", precondition=True)`` — the cheap
   certificate configuration.
 
-Run:  python examples/online_warm_start.py   (CPU f64 or TPU f32)
+Run:  python examples/online_warm_start.py   (f32; JAX_ENABLE_X64=1 for f64)
 """
 
 from _common import setup

@@ -10,7 +10,7 @@ CORA-style unit-vector relaxation (module docstring of
 only the objective (the reference's primary usage pattern,
 ``Riemannian/Concepts.h:40-104``).
 
-Run: python examples/range_aided.py   [OPTTPU_PLATFORM=cpu to skip TPU]
+Run: python examples/range_aided.py   [JAX_PLATFORMS=cpu to stay off the GPU]
 """
 
 from _common import setup

@@ -11,8 +11,9 @@ returning a *certified globally optimal* estimate the plain solve could
 not reach.  Reference seams: the TNT loop (``Riemannian/TNT.h:446-607``)
 and LOBPCG certificate (``LOBPCG.h:237-330``) power every level.
 
-Run: python examples/staircase_escape.py            (TPU f32)
-     OPTTPU_PLATFORM=cpu python examples/staircase_escape.py  (CPU f64)
+Run: python examples/staircase_escape.py            (f32)
+     JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
+         python examples/staircase_escape.py               (CPU f64)
 """
 
 import time

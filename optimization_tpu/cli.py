@@ -28,7 +28,7 @@ import time
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="python -m optimization_tpu",
-        description="TPU-native certifiable optimization — pose-graph CLI")
+        description="certifiable optimization — pose-graph CLI")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     s = sub.add_parser("solve", help="solve a g2o pose graph (SE-Sync)")
@@ -52,8 +52,7 @@ def _build_parser():
                         "(outlier-robust; reports per-vertex "
                         "identifiability)")
     s.add_argument("--dtype", choices=["f32", "f64"], default="f32",
-                   help="iterate dtype (f64 runs emulated on TPU; use on "
-                        "CPU only)")
+                   help="iterate dtype (f64 needs jax_enable_x64)")
     s.add_argument("--max-iterations", type=int, default=100)
     s.add_argument("--gradient-tolerance", type=float, default=None,
                    help="TNT gradient tolerance (default: 2e-3 f32 / "
@@ -103,6 +102,7 @@ def _solve(args) -> int:
         R, t = rob.R, rob.t
         res_status = int(rob.result.status)
         res_iters = int(rob.result.num_iterations)
+        res_f = float(rob.result.f)
         n_amb = int(jnp.sum(~rob.identifiable))
         info.update(
             robust=True,
@@ -121,6 +121,7 @@ def _solve(args) -> int:
         R, t = res.R, res.t
         res_status = int(res.rotation_result.status)
         res_iters = int(res.rotation_result.num_iterations)
+        res_f = float(res.rotation_result.f)
         info["translation_residual"] = float(res.translation_residual)
         cert = res.certificate
     import jax
@@ -134,11 +135,12 @@ def _solve(args) -> int:
         loader="native" if g2o.native_available() else "python",
         load_s=round(t_load, 3), solve_s=round(wall, 3),
         status=TNTStatus(res_status).name, tnt_iterations=res_iters,
-        **info)
+        objective=res_f, **info)
     if cert is not None:
         summary.update(
             certified=bool(cert.certified),
             certificate_lam_min=float(cert.lam_min),
+            certificate_iterations=int(cert.num_iterations),
             certificate_stationarity=float(cert.stationarity))
 
     if args.out:
@@ -170,7 +172,10 @@ def _solve(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .core.compile_cache import enable_compile_cache
+
     args = _build_parser().parse_args(argv)
+    enable_compile_cache()
     if args.cmd == "solve":
         return _solve(args)
     return 1

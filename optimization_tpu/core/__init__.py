@@ -1,1 +1,1 @@
-from . import problem, tree, types
+from . import compile_cache, problem, tree, types

@@ -1,12 +1,11 @@
-"""Sanitizer-tier support (SURVEY.md section 5: the TPU stand-in for
+"""Sanitizer-tier support (SURVEY.md section 5: the stand-in for
 TSan/ASan is ``jax_debug_nans`` + deterministic collectives).
 
 Every solver result carries fixed-length trace arrays whose entries beyond
 ``num_iterations`` are NaN **by contract** (static shapes under jit; the
 padding is contractually unread).  ``jax_debug_nans`` re-runs any jit whose
 OUTPUT contains NaN, so that contract used to exclude every whole-result
-solver test from the ``OPTTPU_DEBUG_NANS=1`` CI tier (VERDICT round 4,
-"what's weak" 5).
+solver test from the ``OPTTPU_DEBUG_NANS=1`` CI tier.
 
 Under the sanitizer tier the padding is **zero-filled instead**: semantically
 invisible to any consumer honoring the contract (entries beyond

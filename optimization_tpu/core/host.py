@@ -5,12 +5,12 @@ The reference drives wall-clock facilities from inside its solver loops
 ``result.time[]`` sampling, the ``max_computation_time`` stopping criterion,
 and ``params.verbose`` per-iteration stdout lines.
 
-A wall clock cannot live inside a compiled XLA loop, and the TPU runtime used
-in production does not support JAX host callbacks (``io_callback`` /
-``debug.callback``) at all — so the TPU-native equivalent is **host-chunked
-stepping** (SURVEY.md section 7.1): :mod:`optimization_tpu.core.driver` runs a
-solver K iterations per dispatch, reads the clock and prints between
-dispatches.  This module holds the host clock primitives it uses.
+A wall clock cannot live inside a compiled XLA loop, and host callbacks
+(``io_callback`` / ``debug.callback``) would synchronize every iteration —
+so the compiled-loop equivalent is **host-chunked stepping** (SURVEY.md
+section 7.1): :mod:`optimization_tpu.core.driver` runs a solver K
+iterations per dispatch, reads the clock and prints between dispatches.
+This module holds the host clock primitives it uses.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Problem protocols: the TPU-native counterpart of the reference's callback seams.
+"""Problem protocols: the JAX counterpart of the reference's callback seams.
 
 The reference threads user callbacks (objective, gradient, Hessian operator,
 residual map, Jacobian pair, prox ops, ...) plus a variadic ``Args&...`` pack
@@ -66,11 +66,10 @@ class RiemannianProblem:
     # ``flat_solve(grad, x, data, aux, Delta, params) -> FlatCGResult``
     # replaces the whole STPCG/flat-CG dispatch in TNT (takes priority
     # over ``flat_qm``).  ``aux`` is the step_eval carry (or None);
-    # ``params`` the TNTParams (static).  This is the seam the streamed
-    # whole-loop Pallas kernel (kernels/streamed_cg.py) plugs in through:
-    # the kernel needs chunk-aware operator generators that a problem
-    # knows how to build but the generic flat_qm closure contract cannot
-    # express.
+    # ``params`` the TNTParams (static).  This is the seam a hand-written
+    # subproblem kernel plugs in through, and how a caller pins engine
+    # options (e.g. ``stpcg_flat(body_kind=...)``) that ``flat_qm`` does not
+    # carry.
     flat_solve: Optional[Callable[..., Any]] = None
     # Optional elementwise preconditioner for the flat engine:
     # ``flat_prec(x, data) -> (v -> M^{-1/2} v)`` returns the elementwise,
@@ -87,9 +86,9 @@ class RiemannianProblem:
     # computes the retraction, trial objective, and trial Riemannian
     # gradient in as few memory passes / reduction syncs as the problem's
     # structure allows (the reference evaluates these separately,
-    # ``TNT.h:505-508,560-562``; at n=2^24 the separate passes cost ~3 ms
-    # per outer iteration — the dominant non-CG cost once the flat engine
-    # runs the subproblem at ~0.36 ms/iteration).  Must be algebraically
+    # ``TNT.h:505-508,560-562``; at n=2^24 the separate passes are the
+    # dominant non-CG cost once the flat engine runs the subproblem at one
+    # memory pass per CG iteration).  Must be algebraically
     # identical to retract + value + rgrad, and valid at h = 0 (TNT calls
     # it once at the initial iterate to seed the aux carry).
     #

@@ -1,6 +1,6 @@
 """Core parameter / result / status vocabulary shared by every solver.
 
-This is the TPU-native counterpart of the reference's params-struct hierarchy
+This is the JAX counterpart of the reference's params-struct hierarchy
 (``Base/Concepts.h:42-88`` and ``Riemannian/Concepts.h:116-148`` in
 david-m-rosen/Optimization): frozen dataclasses with *identical field names and
 defaults* (they are part of the behavioral contract), plus result PyTrees whose

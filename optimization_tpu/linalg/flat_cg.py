@@ -15,31 +15,23 @@ materialized), U a tuple of a few (n,) vectors (or nullary generators), B a
 
 TWO engines share this contract behind :func:`stpcg_flat`:
 
-1. **The pair-deferred engine** (``s_steps=1``, default; round 2): one
+1. **The pair-deferred engine** (``s_steps=1``, default): one
    fused ~6n-word pass + ONE reduction sync per CG iteration
    (Chronopoulos-Gear kappa, q = Hp recomputed elementwise in-pass,
    s-updates merged across unrolled iteration pairs).  Every scalar
    assembly stays at moment order <= 2, so its f32 noise floor is the
    plain sqrt(n)*eps dot-product floor.  Production path for huge-n
-   trust-region subproblems: 1227 CG it/s at n=2^24 on TPU v5e.
+   trust-region subproblems.
 
-2. **The s-step coefficient-space engine** (``s_steps >= 2``; round 3):
+2. **The s-step coefficient-space engine** (``s_steps >= 2``):
    ONE reduction sync per s CG iterations, exact parity with the generic
    engine (demotion around every exit), vmap-safe, with a plain-linear-
-   solver mode (``solve_mode``).  Honest measurement across its candidate
-   niches says the per-sync savings did NOT pay anywhere tried on this
-   runtime: at headline scale (n=2^24) the ~30-45-output reduction group
-   + register chains break XLA's single-fusion pass and it ran SLOWER
-   than engine 1 (f32: 1098 vs 1211 CG it/s; bf16: collapse to 150-430
-   GB/s effective) with identical achieved objective; as the inner
-   Laplacian solver of the 10^4-pose marginalized TNT it was ~11x slower
-   end-to-end (models/pose_sync.py docstring) — inside a compiled nested
-   loop the per-iteration sync charge is far below the 0.3-0.5 ms
-   top-level dispatch figure, so there was little to amortize.  Its
-   order-3/4 honest moment dots also carry a sqrt(n)*eps relative noise
-   floor that engine 1's order-<=2 assemblies do not.  The engine is kept
-   — fully tested — as the ready tool for runtimes/regimes where loop
-   syncs genuinely dominate; every current default is engine 1.
+   solver mode (``solve_mode``).  Its larger reduction group (~30-45
+   outputs) and register chains are harder for XLA to keep in one fusion
+   than engine 1's, and its order-3/4 honest moment dots carry a
+   sqrt(n)*eps relative noise floor that engine 1's order-<=2 assemblies
+   do not.  It is kept, fully tested, for regimes where loop syncs
+   dominate; every current default is engine 1.
 
 **How s steps ride one reduction** (engine 2).  Every vector the group
 manipulates
@@ -128,27 +120,6 @@ def _dot(a, b):
     return jnp.sum(a.astype(dt) * b.astype(dt))
 
 
-# Measured VMEM-residency boundary (v5e, benchmarks/probe_vmem.py +
-# /tmp probe series 2026-08-18): XLA keeps a while-loop's carried vectors
-# + invariants resident when they fit ~128 MiB, and the loop then runs at
-# multi-TB/s apparent instead of the ~650-700 GB/s streamed envelope.
-_VMEM_BYTES = 128 * 1024 * 1024
-
-
-def resolve_body(n, dtype) -> str:
-    """Pick the pair engine's loop-body shape for (n, storage dtype).
-
-    ``single`` (one CG iteration per while-loop body) keeps the body's
-    live set at the four loop vectors (s, r, p + one invariant) — when
-    that fits VMEM the loop goes resident and wins big (measured bf16
-    n=2^24: 4743 vs 3047 CG it/s end-to-end TNT).  ``pair`` (two fused
-    iterations, deferred s update) moves ~6n words/iteration instead of
-    7n but doubles the body's live vectors — the winner once the state
-    streams from HBM (measured f32 n=2^24: 1292 vs 869)."""
-    state = 4 * n * jnp.dtype(dtype).itemsize
-    return "single" if state <= _VMEM_BYTES else "pair"
-
-
 class _UEntry(NamedTuple):
     """A normalized low-rank vector: ``mat()`` materializes it (f32+ ok,
     callers cast), ``dot(v)`` computes ``<u, v>`` in f32+, and
@@ -156,10 +127,8 @@ class _UEntry(NamedTuple):
     scalar folded INSIDE the generating expression — for (base, elem_fn)
     entries this is ``elem_fn(c * base)``, denying XLA the loop-invariant
     ``elem_fn(base)`` subexpression it could otherwise hoist and
-    materialize.  (Measured at bf16 n=2^24: neutral — the engine slope
-    and headline were unchanged, so XLA was not paying a hoisted-y tax
-    there — kept as the defensive form since it is never slower and one
-    reassociation rounding is the only semantic difference.)"""
+    materialize.  (Kept as the defensive form: one reassociation rounding
+    is its only semantic difference.)"""
     mat: Callable[[], jnp.ndarray]
     dot: Callable[[jnp.ndarray], jnp.ndarray]
     mat_scaled: Callable[[jnp.ndarray], jnp.ndarray]
@@ -169,7 +138,7 @@ def _norm_U(U, B, sdt):
     """Normalize the low-rank term to (tuple of :class:`_UEntry`, B).
 
     Accepted entry forms:
-    - an (n,) array — stored vector, read from HBM where used;
+    - an (n,) array — stored vector, read from device memory where used;
     - a nullary callable returning the vector — regenerated where used
       (NB: XLA CSE + loop-invariant code motion may still materialize a
       repeatedly-used regenerated vector once and re-read it);
@@ -178,8 +147,8 @@ def _norm_U(U, B, sdt):
       uses the adjoint identity ``<u, v> = <base, elem_fn(v)>`` so the
       reduction reads only ``base`` and regenerates the weighting inside
       its own fusion — ``u`` itself is never a reduction input.  This is
-      the TPU-native form for operator-derived vectors like y = 2 A x
-      (measured: it removes the engine's largest extra HBM stream)."""
+      the form for operator-derived vectors like y = 2 A x: it removes
+      the engine's largest extra memory stream."""
     if U is None or len(U) == 0:
         return (), jnp.zeros((0, 0), sdt)
 
@@ -227,8 +196,7 @@ def flat_init_dots(g, A0, U, B=None) -> FlatCGInit:
     vectors are already live in registers of a fused pass — e.g. inside a
     ``RiemannianProblem.step_eval`` — and XLA folds the whole CG init into
     that pass's reduction group instead of paying a separate pre-loop pass
-    + sync per outer iteration (the dominant share of TNT's measured
-    ~2.5-3 ms/outer fixed cost at n=2^24, docs/ROADMAP.md).
+    + sync per outer iteration.
     """
     sdt = _acc_dt(g)
     if U is not None and len(U) and B is None:
@@ -294,17 +262,15 @@ def _stpcg_flat_pair(
     theta: float = 0.5,
     epsilon: float = 1e-8,
     init: Optional[FlatCGInit] = None,
-    body_kind: str = "auto",
+    body_kind: str = "pair",
     kernel_check: bool = True,
 ) -> FlatCGResult:
-    """The round-2 pair-deferred engine: ONE fused ~6n-word pass + ONE
-    reduction sync per CG iteration (s updates merged across unrolled
-    iteration pairs, q = Hp recomputed elementwise, Chronopoulos-Gear
-    kappa, all assemblies at moment order <= 2).  The production path for
-    huge-n trust-region subproblems: it holds XLA to a single fusion per
-    iteration (measured ~490-570 GB/s at n=2^24; 1211 CG it/s f32, 2781
-    bf16) where the s-step engine's larger reduction group splits and runs
-    slower despite fewer syncs.
+    """The pair-deferred engine: ONE fused ~6n-word pass + ONE reduction
+    sync per CG iteration (s updates merged across unrolled iteration
+    pairs, q = Hp recomputed elementwise, Chronopoulos-Gear kappa, all
+    assemblies at moment order <= 2).  The production path for huge-n
+    trust-region subproblems: its reduction group is small enough for XLA
+    to keep each iteration in one fusion.
 
     ``init`` (a :class:`FlatCGInit` from :func:`flat_init_dots`) supplies
     the pre-loop dot group, removing every memory pass and reduction sync
@@ -315,10 +281,8 @@ def _stpcg_flat_pair(
     boundary with descent-aligned sign).  Everything the safeguard needs —
     the |q_k|^2 recurrence (ww/wq/qq) and its fresh anchors nr = |A0 r|^2
     and pa = <A0 r, A0 p> — then dead-codes out of the per-iteration pass.
-    Hypothesized as a VMEM-resident-regime op cut; MEASURED 1.7x SLOWER
-    there (benchmarks/probe_ugroup.py: the narrower reduction group loses
-    XLA's fusion sweet spot), so every default keeps the safeguard and the
-    flag targets runtimes that genuinely charge per op.
+    An op-count cut; no device measured yet has gained from it (see
+    benchmarks/probe_ugroup.py), so every default keeps the safeguard.
     Semantics change ONLY on subproblems where some CG
     direction has |Hp| < 1e-8 |p|: such a step now exits through the
     negative-curvature/trust-region boundary branch with positive sign
@@ -332,12 +296,12 @@ def _stpcg_flat_pair(
     dtype = g.dtype
     sdt = _acc_dt(g)
 
-    # U is a TUPLE of flat (n,) vectors — an (n, k) array would be padded
-    # by the TPU tiler (trailing dim k -> 128 lanes), multiplying its
-    # memory traffic ~64x (measured: it erased the whole engine win).
+    # U is a TUPLE of flat (n,) vectors: an (n, k) array with a tiny
+    # trailing dim k lays out badly on an accelerator (k padded up to its
+    # tile width) and multiplies the term's memory traffic.
     # An entry may also be a NULLARY CALLABLE returning the vector: it is
     # then regenerated elementwise inside every fusion instead of being
-    # stored and re-read from HBM (e.g. y = 2 A x for elementwise A).
+    # stored and re-read from memory (e.g. y = 2 A x for elementwise A).
     U, B = _norm_U(U, B, sdt)
     k_lr = len(U)
 
@@ -488,9 +452,8 @@ def _stpcg_flat_pair(
         #   |A0 p_k|^2 = |A0 r_k|^2 - 2 beta <A0 r_k, A0 p_{k-1}>
         #                + beta^2 |A0 p_{k-1}|^2
         # — the same class as the |q_k|^2 recurrence above, anchored each
-        # half by the fresh nr/pa/mA dots.  In the VMEM-resident regime
-        # the pass is VPU-op-bound, so dropping three fresh reductions
-        # (and A0 p's only reduction-side consumer) pays directly.
+        # half by the fresh nr/pa/mA dots, which replace three fresh
+        # reductions (and A0 p's only reduction-side consumer).
         mB2 = -st.mA + beta * st.mB
         # U'r_{k+1} by the same exact order-2 class:  r2 = r + cr q2 with
         # q2 = A0 p2 + U B (U'p2),  so  U'r2 = U'r + cr (U'(A0 p2)
@@ -531,26 +494,25 @@ def _stpcg_flat_pair(
             boundary=jnp.where(frozen, st.boundary, boundary),
         ), pend_out
 
-    if body_kind == "auto":
-        body_kind = resolve_body(n, dtype)
     if body_kind == "single":
         # One half per while iteration: s applied every pass (7n words vs
-        # the pair's 6n average) but the body's live set stays at the four
-        # loop vectors — the winning shape whenever that set rides VMEM
-        # (see resolve_body).
+        # the pair's 6n average), with the body's live set at the four
+        # loop vectors.
         def body(st: _State) -> _State:
             st1, _ = half(st, zero, apply_s=True)
             return st1
-    else:
+    elif body_kind == "pair":
         # Pair-deferred: two halves per while iteration, the first
         # deferring its s coefficient into the second's fused s update —
         # fewer words per iteration, but half 1's outputs + half 2's
-        # outputs double the body's live vectors.  The winning shape in
-        # the HBM-streamed regime (state > VMEM).
+        # outputs double the body's live vectors.
         def body(st: _State) -> _State:
             st1, pend = half(st, zero, apply_s=False)
             st2, _ = half(st1, pend, apply_s=True)
             return st2
+    else:
+        raise ValueError(f"body_kind must be 'single' or 'pair', "
+                         f"not {body_kind!r}")
 
     st = jax.lax.while_loop(cond, body, st0)
 
@@ -607,7 +569,7 @@ def stpcg_flat(
     s_steps: int = 1,
     solve_mode: bool = False,
     init: Optional[FlatCGInit] = None,
-    body_kind: str = "auto",
+    body_kind: str = "pair",
     kernel_check: bool = True,
     prec: Optional[Callable[[jnp.ndarray], jnp.ndarray]] = None,
 ) -> FlatCGResult:
@@ -618,24 +580,25 @@ def stpcg_flat(
       register vectors many times per pass and expected to fuse (never
       materialized across passes).
     - ``U``: tuple of (n,) vectors and/or nullary callables regenerating
-      them elementwise (an (n, k) array would be padded to 128 lanes by the
-      TPU tiler, multiplying its traffic ~64x); ``B``: (k, k) symmetric.
+      them elementwise (not an (n, k) array: its tiny trailing dim would be
+      padded to the device's tile width); ``B``: (k, k) symmetric.
       Pass None/None for a purely elementwise Hessian.
-    - ``body_kind`` (pair engine): ``"auto"`` (default) picks the loop
-      body by the measured VMEM-residency boundary (:func:`resolve_body`
-      — ``"single"`` when the four loop vectors fit ~128 MiB, else
-      ``"pair"``); pass ``"single"``/``"pair"`` to override.  Semantics
-      are identical (both parity-tested against the generic engine);
-      only the words/iteration vs live-vector trade differs.
+    - ``body_kind`` (pair engine): ``"pair"`` (default) runs two CG
+      iterations per loop body with a deferred s update (~6n words per
+      iteration), ``"single"`` one (~7n).  Semantics are identical (both
+      parity-tested against the generic engine); only the words/iteration
+      vs live-vector trade differs.  The pair body was faster in both
+      tiers of the headline TNT at n = 2^24 on an H100 (PERF.md); no other
+      size has been timed on the card.
     - ``s_steps``: CG iterations advanced per reduction sync (1..3).
       ``1`` (default) runs the pair-deferred engine — one fused ~6n-word
       pass + one sync per iteration, assemblies at moment order <= 2 —
-      the measured-best choice for huge-n subproblems.  ``>= 2`` runs the
+      the default for huge-n subproblems.  ``>= 2`` runs the
       coefficient-space s-step engine, one sync per s iterations: use it
       where the per-sync charge dominates the pass (small n, cheap or
       preconditioned operators, e.g. the marginalized inner Laplacian
-      solves); at n=2^24 its larger reduction group loses XLA fusion and
-      it runs slower despite fewer syncs (module docstring, measured).
+      solves); at n=2^24 its larger reduction group is harder to fuse
+      (module docstring).
     - ``solve_mode``: run as a plain truncated CG *linear solver* for
       H s = -g (pass ``g = -rhs``, read the solution from ``s``): on a
       curvature/kernel breakdown the engine stops at the current iterate
@@ -669,10 +632,7 @@ def stpcg_flat(
       epsilon safeguard and with it the |q|^2 recurrence plus its fresh
       anchor dots (nr/pa).  Only for subproblems certifying no eps-kernel
       along CG directions (see :func:`_stpcg_flat_pair`'s docstring for
-      the exact semantics delta).  NB measured SLOWER on this runtime
-      (1.7x at bf16 n=2^24 — the narrower reduction group loses the
-      fusion sweet spot, benchmarks/probe_ugroup.py); defaults keep the
-      safeguard, the flag is for runtimes that charge per op.
+      the exact semantics delta); defaults keep the safeguard.
     """
     if prec is not None:
         if init is not None:
@@ -1156,10 +1116,9 @@ def sphere_rayleigh_step(A_elem, with_init: bool = True):
         |grad|^2 = 4 na2 / n2 - rq'^2,
 
     algebraically identical to retract -> f -> proj(2 A x_prop) (the
-    projection identity: <x_p, 2A x_p> = rq').  This replaces the ~3 ms of
-    separate retraction/objective/gradient passes per outer iteration at
-    n=2^24 with a single ~4n-word pass + one sync (measured: the dominant
-    non-CG cost of the headline TNT, VERDICT round-2 item 7).
+    projection identity: <x_p, 2A x_p> = rq').  This replaces separate
+    retraction/objective/gradient passes per outer iteration with a single
+    ~4n-word pass + one sync.
 
     Returns ``step_eval(x, h, data) -> (x_prop, f_prop, grad, gradnorm,
     aux)`` with ``aux`` a :class:`SphereStepAux`: the trial Rayleigh
@@ -1171,8 +1130,7 @@ def sphere_rayleigh_step(A_elem, with_init: bool = True):
     ``flat_qm(x, data, aux)``, which forwards ``aux.init`` to
     ``stpcg_flat(init=)``: the next outer iteration then runs NO memory
     pass and NO reduction sync between the while-loop back-edge and the
-    first CG iteration (the init group + its sync were the dominant share
-    of the measured ~2.5-3 ms/outer fixed cost at n=2^24).
+    first CG iteration.
 
     NB: TNT seeds the carry by calling this at (x0, h=0), whose outputs
     describe the NORMALIZED x0 — while TNT's own f0/grad0 are evaluated
@@ -1242,11 +1200,10 @@ def sphere_rayleigh_flat(x, A_elem, rq=None):
     # reduction computes <x, 2A v> with the elementwise weighting
     # regenerated inside the consuming fusion, so the engine's reductions
     # read only x (which the pass reads anyway) and y is materialized
-    # solely where the Hessian application adds c1*y.  The previous
-    # nullary-callable form was defeated by XLA CSE + loop-invariant code
-    # motion: the "regenerated" y was hoisted, materialized to HBM, and
-    # re-read by every consumer kernel (measured +80 us/CG-iteration at
-    # n=2^24 bf16, ~half the U-group's entire cost).
+    # solely where the Hessian application adds c1*y.  (A nullary-callable
+    # form is defeated by XLA CSE + loop-invariant code motion: the
+    # "regenerated" y is hoisted, materialized to device memory, and
+    # re-read by every consumer kernel.)
     U = (x, (x, lambda v: 2.0 * A_elem(v)))
     B = jnp.asarray([[2.0 * rq, -1.0], [-1.0, 0.0]], _acc_dt(x))
     return A0, U, B, rq

@@ -9,7 +9,7 @@ equilibration, soft locking of the contiguous converged prefix, randomized
 
     r_i <= tau * (|A|_est + theta_i |B|_est) * |x_i|         (LOBPCG.h:292-307)
 
-**TPU-native redesign — static-shape soft locking.**  XLA requires static
+**Static-shape redesign — soft locking.**  XLA requires static
 shapes, so instead of shrinking the basis (reference ``LOBPCG.h:249-264``
 keeps ``ns = 3 nx - 2 nc`` live columns), S is always (m, 3 nx) and locked
 W/P columns are *zeroed*; the Gram pencil is then repaired by writing 1
@@ -18,12 +18,11 @@ W/P columns are *zeroed*; the Gram pencil is then repaired by writing 1
 trivial fake eigenpairs that sort first; the active Ritz pairs are read from
 the static-width window starting at the known fake count, so they are
 *bitwise the mathematics of the reference's shrunken basis*.  (Sentinels are
-kept near the active spectrum's scale: TPU's QDWH-based eigh normalizes by
-the matrix norm, so 1/eps-scale sentinels erase f32 accuracy.)  All heavy
-math is three
-(m x 3nx) block operator applications and (3nx x m)@(m x 3nx) Gram GEMMs —
-exactly the MXU-shaped kernels a TPU wants; the small (3nx)^2 eigensolve runs
-as a single fused ``eigh``.
+kept near the active spectrum's scale: an eigh that normalizes by the
+matrix norm (QDWH-based lowerings do) loses f32 accuracy to 1/eps-scale
+sentinels.)  All heavy math is three (m x 3nx) block operator applications
+and (3nx x m)@(m x 3nx) Gram GEMMs; the small (3nx)^2 eigensolve runs as a
+single fused ``eigh``.
 
 Efficiency deviation (documented): the reference recomputes ``AX = A(X)``
 after the Rayleigh-Ritz step (``LOBPCG.h:281-282``); we form ``AX = AS @ C_x``
@@ -44,9 +43,10 @@ __all__ = ["LOBPCGResult", "lobpcg", "lobpcg_fleet", "rayleigh_ritz"]
 
 
 def _mm(a, b):
-    """Full-precision matmul: the TPU MXU's default bf16 inputs destroy the
-    Gram pencil / Ritz rotations in f32 (verified on hardware), so every
-    precision-critical GEMM in this module pins HIGHEST precision."""
+    """Full-precision matmul: reduced-precision inputs (a GPU's TF32
+    default keeps ~3 decimal digits) destroy the Gram pencil / Ritz
+    rotations in f32, so every precision-critical GEMM in this module pins
+    HIGHEST precision."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -70,17 +70,15 @@ def rayleigh_ritz(A: jnp.ndarray, B: jnp.ndarray,
     reference computation.
 
     ``eigh_fn`` overrides the dense symmetric eigensolver (default
-    ``jnp.linalg.eigh`` — QDWH on TPU).  Pass
-    :func:`optimization_tpu.linalg.jacobi.jacobi_eigh` when this RR runs
-    vmapped over a fleet: batched small QDWH eighs cost ~8-10x a single one
-    on this runtime, while the parallel-Jacobi solver batches for free
-    (measured, benchmarks/config10).
+    ``jnp.linalg.eigh``).  :func:`optimization_tpu.linalg.jacobi.jacobi_eigh`
+    is the alternative whose cost batches for free when this RR runs vmapped
+    over a fleet (benchmarks/probe_jacobi.py compares the two).
     """
     if eigh_fn is None:
         eigh_fn = jnp.linalg.eigh
-    # The matmul-precision scope also covers the QDWH/Jacobi matmuls inside
-    # XLA's eigh lowering — at the TPU default (bf16 MXU inputs) the Ritz
-    # rotations come back too inaccurate to converge (verified on hardware).
+    # The matmul-precision scope also covers the matmuls inside XLA's eigh
+    # lowering — at a reduced-precision default the Ritz rotations come
+    # back too inaccurate to converge.
     with jax.default_matmul_precision("float32"):
         n = B.shape[0]
         eps = jnp.finfo(B.dtype).eps
@@ -102,9 +100,9 @@ def rayleigh_ritz(A: jnp.ndarray, B: jnp.ndarray,
         # is the Gershgorin upper bound (max absolute row sum) of At — a
         # *guaranteed* bound on every eigenvalue (a max-|entry| heuristic can
         # be beaten by a factor of n, e.g. the all-ones matrix), yet within
-        # a factor n of the spectrum's scale: TPU's eigh (QDWH-based)
-        # normalizes by |At|, so 1/eps-scale sentinels would push the active
-        # eigenvalues below f32 resolution (verified on hardware).
+        # a factor n of the spectrum's scale: an eigh that normalizes by
+        # |At| (QDWH-based) would see 1/eps-scale sentinels push the active
+        # eigenvalues below f32 resolution.
         big = jnp.max(jnp.sum(jnp.abs(At), axis=1)) + 1.0
         At = At + jnp.diag(jnp.where(good, 0.0, big).astype(B.dtype))
         theta, U = eigh_fn(At)
@@ -118,9 +116,9 @@ def _rayleigh_ritz_chol(A: jnp.ndarray, B: jnp.ndarray,
     """Rayleigh-Ritz via shifted Cholesky whitening: the fleet fast path.
 
     The robust :func:`rayleigh_ritz` pays TWO dense eigendecompositions per
-    call; under ``jax.vmap`` (``lobpcg_fleet``) batched small QDWH eighs cost
-    ~8-10x a single one on this runtime and dominate the lockstep iteration
-    (measured, benchmarks/probe_jacobi.py).  This variant whitens through a
+    call; under ``jax.vmap`` (``lobpcg_fleet``) the batched small eighs
+    dominate the lockstep iteration (benchmarks/probe_jacobi.py times the
+    arms).  This variant whitens through a
     *shifted* Cholesky factorization instead — one batched ``cholesky`` plus
     two triangular solves replace the whitening eigh, halving the eigh count.
 
@@ -168,16 +166,11 @@ def _rayleigh_ritz_chol(A: jnp.ndarray, B: jnp.ndarray,
     threshold-Jacobi solve seeded by ``u_prev`` (``jacobi_eigh(v0=)``,
     capped at ``jacobi_sweeps``).  The return grows to
     ``(theta, C, ok, U)`` with ``U`` the raw eigenvectors to seed the
-    next call.  **Measured verdict (round 4, v5e)**: isolated, a warm
-    1-sweep Jacobi beats the batched QDWH eigh (1.19 vs 2.27 ms at the
-    16 x 48 x 48 fleet shape, benchmarks/probe_warm_rr.py) — but
-    IN-FLEET the live basis changes enough per lockstep iteration that
-    the seeded solve needs several sweeps, whose sequential rotation
-    rounds pay this runtime's per-step loop overhead: 32.3 vs 25.2
-    ms/lockstep at config10 scale, with eigenvalue accuracy degrading
-    6.9e-6 -> 5.0e-4 when the sweep cap bites on stale seeds.  The
-    fleet default stays "chol"; "chol_warm" is a tested opt-in for
-    runtimes with cheap loop steps.
+    next call.  In-fleet the live basis changes enough per lockstep
+    iteration that the seeded solve needs several sweeps, and eigenvalue
+    accuracy degrades when the sweep cap bites on stale seeds
+    (benchmarks/probe_warm_rr.py).  The fleet default stays "chol";
+    "chol_warm" is a tested opt-in for devices with cheap loop steps.
     """
     with jax.default_matmul_precision("float32"):
         n = B.shape[0]
@@ -264,7 +257,7 @@ class LOBPCGResult(NamedTuple):
     # returning wrong eigenpairs.
     # Plain Python default (not jnp.asarray): a traced-array default would
     # execute at import time and commit the JAX backend before user code can
-    # call jax.config.update("jax_platforms", ...).
+    # configure it.
     pencil_consistent: Any = True
     # Per-iteration traces (NaN/-1 beyond num_iterations): max residual over
     # the nev wanted pairs, and the converged-prefix count.
@@ -335,9 +328,8 @@ def lobpcg(
       ``pencil_consistent`` instead of deflated.  The fleet fast path —
       see :func:`_rayleigh_ritz_chol`), or ``"chol_warm"`` (the chol path
       with its eigh warm-started from the previous iteration's Ritz
-      rotation via threshold Jacobi; measured SLOWER in-fleet on this
-      runtime — see the verdict in :func:`_rayleigh_ritz_chol` — kept as
-      a tested opt-in).
+      rotation via threshold Jacobi; a tested opt-in, see
+      :func:`_rayleigh_ritz_chol`).
     """
     if rr_method not in ("eigh", "chol", "chol_warm"):
         raise ValueError(
@@ -396,14 +388,15 @@ def lobpcg(
     # fake pairs are identified *post hoc* by their basis energy (the
     # repaired pencil decouples exactly, so a fake eigenvector is supported
     # on the masked coordinates, whose repaired B-diagonal is 1) and sorted
-    # last explicitly — the round-1 design required the sentinel to provably
+    # last explicitly — an earlier design required the sentinel to provably
     # under-run the active spectrum, which a randomized norm estimate cannot
     # guarantee (can undershoot ||A||_2 by ~sqrt(m/nx) on spiked spectra).
     # A positive moderate value keeps it away from the wanted (smallest)
     # Ritz values — degeneracy with an active Ritz value is the one channel
     # that could still mix eigenvectors, and ``pencil_consistent`` reports it
     # instead of silently corrupting the window.  (Moderate scale because
-    # TPU's QDWH eigh normalizes by |A|; 1/eps sentinels erase f32 accuracy.)
+    # a QDWH-based eigh normalizes by |A|; 1/eps sentinels erase f32
+    # accuracy.)
     pos_sent = 16.0 * (A2normest + B2normest) + 1.0
 
     n_trace = max(max_iterations, 1)
@@ -584,14 +577,13 @@ def lobpcg_fleet(
     """Fleet-batched LOBPCG: one fused three-block iteration across many
     same-shaped pencils.
 
-    Single-instance LOBPCG at moderate m is small-op-latency-bound on this
-    runtime (~1 ms/iteration: two (3nx x 3nx) eighs + the blocked GEMMs),
-    so certification and spectral-initialization sweeps that solve one
-    pencil per problem pay the floor serially.  Batching the *entire*
-    iteration — Rayleigh-Ritz, masking, convergence logic — with
-    ``jax.vmap`` turns the fleet into single batched GEMMs/eighs whose
-    per-instance cost amortizes the dispatch/small-op floor (measured on
-    TPU v5e, m=1e4 fleet of 16: see benchmarks/config3).
+    Single-instance LOBPCG at moderate m is bound by small-op latency (two
+    (3nx x 3nx) eighs + the blocked GEMMs per iteration), so certification
+    and spectral-initialization sweeps that solve one pencil per problem
+    pay that floor serially.  Batching the *entire* iteration —
+    Rayleigh-Ritz, masking, convergence logic — with ``jax.vmap`` turns the
+    fleet into single batched GEMMs/eighs whose per-instance cost
+    amortizes the floor (benchmarks/config3 and config10 measure it).
 
     - ``A(S, data_i)`` (and optional ``B``/``T``): per-instance operators
       reading the instance slice of ``data`` (a PyTree stacked on a
@@ -607,14 +599,11 @@ def lobpcg_fleet(
     standalone solve's, and ``num_iterations`` reports the lockstep count.
 
     The fleet default is ``rr_method="chol"`` (one eigh per iteration via
-    shifted-Cholesky whitening): the in-fleet TPU A/B
-    (benchmarks/probe_jacobi.py + config10 two-point slopes, 16x m=1e4,
-    2026-08) measured ~2.5 ms/lockstep-iteration (~6500 aggregate it/s)
-    vs ~4 ms for the QDWH-eigh RR (~1.65x) and ~18 ms for batched
-    parallel-Jacobi, with the chol arm also the most accurate converged
-    (1.9e-05 max rel err, pencil-consistent).  Fleet vs serial device
-    time is ~1.8x; the fleet additionally pays ONE host-dispatch charge
-    per sweep where serial solves pay one per instance.
+    shifted-Cholesky whitening, half the eigh count of the eigh RR and
+    the most accurate converged arm in the fleet tests); the fleet pays
+    ONE host dispatch per sweep where serial solves pay one per instance.
+    Its speed against the eigh RR and batched parallel-Jacobi on the card
+    is not measured yet (benchmarks/probe_jacobi.py, config10).
 
     Returns an :class:`LOBPCGResult` whose fields carry a leading fleet
     axis (``warm_start`` is batched too and resumes through

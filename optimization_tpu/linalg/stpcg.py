@@ -124,7 +124,6 @@ def stpcg(
     At: Optional[Callable[[Any], Any]] = None,
     user_function: Optional[Callable[..., jnp.ndarray]] = None,
     epsilon: float = 1e-8,
-    fused_dots: bool = False,
 ) -> STPCGResult:
     """Run STPCG.  ``Delta`` may be a traced scalar (TNT passes its radius in).
 
@@ -139,23 +138,8 @@ def stpcg(
       predicate evaluated each iteration before the update is applied (the
       jittable analog of the reference's STPCGUserFunction,
       ``IterativeSolvers.h:50-59,364-369``).
-    - ``fused_dots``: compute the per-iteration reductions with the fused
-      Pallas kernels (``kernels.cg_dots`` / ``kernels.axpy_selfdot``) — one
-      memory pass instead of several.  Valid ONLY when the tangent space is a
-      single flat float array on one device with the plain Euclidean
-      ``inner`` and no preconditioner (the flagship large-n configuration);
-      the generic path remains the default because ``inner`` is the
-      mesh-sharding seam — and because, measured end-to-end on TPU v5e, the
-      opaque pallas_call boundary blocks XLA's cross-op fusion inside the CG
-      loop and nets ~20% slower despite the kernels being faster in
-      isolation.
     """
     _validate(max_iterations, kappa_fgr, theta, epsilon)
-    if fused_dots and (precon is not None
-                       or not isinstance(g, jnp.ndarray) or g.ndim != 1):
-        raise ValueError(
-            "fused_dots requires a flat single-array tangent space with no "
-            "preconditioner")
 
     def apply_P(r):
         if precon is None:
@@ -211,14 +195,9 @@ def stpcg(
         pk_M_2 = st.rv + st.beta * st.beta * st.p_M_2_prev
 
         Hp = Hv(p)
-        if fused_dots:
-            from ..kernels import cg_dots
-
-            kappa, Hp_norm2, p_norm2, pr_f = cg_dots(p, Hp, st.r)
-        else:
-            kappa = inner(p, Hp)
-            Hp_norm2 = inner(Hp, Hp)
-            p_norm2 = inner(p, p)
+        kappa = inner(p, Hp)
+        Hp_norm2 = inner(Hp, Hp)
+        p_norm2 = inner(p, p)
         in_kernel = jnp.sqrt(Hp_norm2) < epsilon * jnp.sqrt(p_norm2)
 
         # Descent alignment of the kernel direction.  The model gradient at
@@ -229,7 +208,7 @@ def stpcg(
         # direction of descent") and walks the model *uphill* whenever the
         # search direction lies in ker(H) — e.g. TNT from a point where the
         # Riemannian Hessian vanishes.  We implement the correct sign.
-        pr = pr_f if fused_dots else inner(p, st.r)
+        pr = inner(p, st.r)
         sign = jnp.where(in_kernel & (pr > 0), -jnp.ones((), dtype),
                          jnp.ones((), dtype))
         sk_M_pk_eff = sign * sk_M_pk
@@ -256,17 +235,9 @@ def stpcg(
 
         # Interior branch: full CG update (IterativeSolvers.h:374-420)
         s_int = tree_axpy_like(alpha, p, st.s)
-        if fused_dots:
-            from ..kernels import axpy_selfdot
-
-            # identity preconditioner: v = r and <r, v> = |r|^2, fused with
-            # the residual update in one pass
-            r_int, rv_int = axpy_selfdot(alpha, Hp, st.r)
-            v_int = r_int
-        else:
-            r_int = tree_axpy_like(alpha, Hp, st.r)
-            v_int, r_int = apply_P(r_int)
-            rv_int = inner(r_int, v_int)
+        r_int = tree_axpy_like(alpha, Hp, st.r)
+        v_int, r_int = apply_P(r_int)
+        rv_int = inner(r_int, v_int)
         beta = rv_int / (alpha * kappa)
 
         if user_function is not None:

@@ -13,7 +13,7 @@ Geometry (canonical embedded metric):
   computed eigendecomposition-free via the Newton-Schulz-stabilized SVD-free
   route ( (X+V) (I + V^T V)^{-1/2} ) using a symmetric eigendecomposition of
   the small p x p Gram matrix.  This keeps all heavy math as (n x p) @ (p x p)
-  matmuls: MXU-friendly and exactly differentiable.
+  matmuls: accelerator-friendly and exactly differentiable.
 - metric: Frobenius inner product.
 
 ``so(d)`` is St(d, d) restricted to determinant +1; the polar retraction
@@ -43,8 +43,9 @@ def _acc(u):
 
 
 def _mm(a, b):
-    # p x p / n x p products at full precision: the TPU MXU's default bf16
-    # inputs lose the orthogonality digits trust-region logic relies on.
+    # p x p / n x p products at full precision: reduced-precision inputs
+    # (a GPU's TF32 default) lose the orthogonality digits trust-region
+    # logic relies on.
     # Sub-f32 *storage* is promoted to f32 first (bf16 tier; see _acc).
     return jnp.matmul(_acc(a), _acc(b), precision=jax.lax.Precision.HIGHEST)
 

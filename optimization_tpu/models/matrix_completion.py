@@ -60,10 +60,9 @@ def solve_W(U: jnp.ndarray, data: CompletionData) -> jnp.ndarray:
     Solved by a fixed 2k-sweep batched CG on the (k x k) SPD normal
     equations instead of a Cholesky factorization: CG on a k-dimensional
     SPD system terminates in at most k iterations in exact arithmetic, the
-    whole computation is batched einsums (MXU work, no LAPACK-style
-    decomposition lowering — which this TPU runtime cannot compile inside a
-    differentiated solver loop), and the unrolled iteration differentiates
-    cleanly under ``jax.grad``/``jax.jvp``.
+    whole computation is batched einsums (no LAPACK-style decomposition
+    inside a differentiated solver loop), and the unrolled iteration
+    differentiates cleanly under ``jax.grad``/``jax.jvp``.
     """
     k = U.shape[-1]
     # G[j] = U' D_j U  -> (n, k, k);  b[j] = U' D_j m_j -> (n, k)

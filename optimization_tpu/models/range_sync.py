@@ -174,7 +174,7 @@ def random_instance(key, n: int, d: int = 3, *, extra_edges: int = 0,
     R_true = rs.ROTATIONS.rand(k1, n, d, d)
     t_true = box * jax.random.uniform(k2, (n, d))
 
-    # 2**31 - 1: the maxval must fit int32 (x32 mode on TPU)
+    # 2**31 - 1: the maxval must fit int32 (JAX's default x32 mode)
     rng = np.random.default_rng(
         int(jax.random.randint(k3, (), 0, 2**31 - 1)))
     src = np.concatenate([np.arange(n - 1),
@@ -190,10 +190,12 @@ def random_instance(key, n: int, d: int = 3, *, extra_edges: int = 0,
     Rn = rs.ROTATIONS.retract(
         jnp.eye(d)[None].repeat(E, 0),
         noise * jax.random.normal(k4, (E, d, d)))
+    hi = jax.lax.Precision.HIGHEST
     Rij = jnp.einsum("eji,ejk->eik", R_true[src],
-                     jnp.einsum("eij,ejk->eik", Rn, R_true[dst]))
+                     jnp.einsum("eij,ejk->eik", Rn, R_true[dst],
+                                precision=hi), precision=hi)
     dt_e = t_true[dst] - t_true[src]
-    tij = jnp.einsum("eji,ej->ei", R_true[src], dt_e)
+    tij = jnp.einsum("eji,ej->ei", R_true[src], dt_e, precision=hi)
     tij = tij + noise * jax.random.normal(k4, tij.shape)
 
     rr = rng.integers(0, n, (2, max(n_ranges, 0)))

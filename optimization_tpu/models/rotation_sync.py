@@ -12,7 +12,10 @@ the gather/scatter edge incidence — no hand-written derivatives — and the
 whole instance vmaps over a fleet for scenario-parallel (DP) execution and
 shards its rotation axis over the mesh "model" axis for block partitioning.
 
-All heavy ops are (E, d, d) batched matmuls: MXU-shaped work on TPU.
+All heavy ops are (E, d, d) batched matmuls.  Every product runs at full
+f32 precision (``Precision.HIGHEST``): a GPU's default TF32 inputs keep
+about three decimal digits, too coarse for trust-region gain ratios and the
+certificate's eigenvalue sign test.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ import jax.numpy as jnp
 
 from ..core.problem import RiemannianProblem
 from ..manifolds.stiefel import ROTATIONS, STIEFEL
+
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 __all__ = ["RotationSyncData", "CertificateResult", "certify",
            "make_problem", "random_instance", "random_fleet",
@@ -44,8 +53,8 @@ def chordal_cost(R: jnp.ndarray, data: RotationSyncData) -> jnp.ndarray:
     """f(R) = sum_e kappa_e |R_i - R~_e R_j|_F^2 (kappa = 1 when absent)."""
     Ri = R[data.src]                       # (E, d, d)
     Rj = R[data.dst]
-    # d x d products are tiny; run them at full precision — the TPU MXU's
-    # default bf16 inputs are too coarse for trust-region gain ratios.
+    # d x d products are tiny; run them at full precision (module
+    # docstring).
     pred = jnp.einsum("eij,ejk->eik", data.Rij, Rj,
                       precision=jax.lax.Precision.HIGHEST)
     diff = Ri - pred
@@ -89,10 +98,10 @@ def make_problem(preconditioned: bool = False,
     Euclidean dot the engine's contract requires, and the tame
     connection-Laplacian spectrum (<= ~4 kappa_max deg_max) keeps even
     the s >= 2 moment assemblies well within f32 at rotation-sync scales
-    (group size via ``TNTParams.flat_s_steps``).  NOTE the measured
-    caveat (flat_cg.py module docstring): on the current runtime the
-    engine's restructurings have not beaten the generic STPCG inside
-    nested compiled loops — treat this as an equivalence-tested
+    (group size via ``TNTParams.flat_s_steps``).  NOTE (flat_cg.py module
+    docstring): the engine's restructurings are not shown to beat the
+    generic STPCG inside nested compiled loops — treat this as an
+    equivalence-tested
     alternative path, not a default (exact parity:
     tests/test_rotation_sync.py::test_flat_engine_matches_generic).
     Mutually exclusive with ``preconditioned`` (TNT falls back to the
@@ -126,15 +135,15 @@ def random_instance(key, n: int, d: int = 3, extra_edges: int = 0,
         src = jnp.concatenate([src, e_src])
         dst = jnp.concatenate([dst, e_dst])
 
-    Rij_clean = R_true[src] @ jnp.swapaxes(R_true[dst], -1, -2)
+    Rij_clean = _mm(R_true[src], jnp.swapaxes(R_true[dst], -1, -2))
     # Perturb each measurement with a small rotation exp(noise * skew)
     w = noise * jax.random.normal(k4, (src.shape[0], d, d), dtype)
     skew = 0.5 * (w - jnp.swapaxes(w, -1, -2))
     # 2nd-order expm approximation is plenty for small noise
-    pert = (jnp.eye(d, dtype=dtype) + skew + 0.5 * (skew @ skew))
+    pert = (jnp.eye(d, dtype=dtype) + skew + 0.5 * _mm(skew, skew))
     # Re-orthonormalize the perturbation via the manifold retraction machinery
     pert = _orthonormalize(pert)
-    Rij = pert @ Rij_clean
+    Rij = _mm(pert, Rij_clean)
     return R_true, RotationSyncData(src=src, dst=dst, Rij=Rij)
 
 
@@ -159,12 +168,12 @@ def random_fleet(key, B: int, n: int, d: int = 3, extra_edges: int = 0,
     def one(k):
         k1, k4 = jax.random.split(k)
         R_true = ROTATIONS.rand(k1, n, d, d).astype(dtype)
-        Rij_clean = R_true[src] @ jnp.swapaxes(R_true[dst], -1, -2)
+        Rij_clean = _mm(R_true[src], jnp.swapaxes(R_true[dst], -1, -2))
         w = noise * jax.random.normal(k4, (src.shape[0], d, d), dtype)
         skew = 0.5 * (w - jnp.swapaxes(w, -1, -2))
         pert = _orthonormalize(
-            jnp.eye(d, dtype=dtype) + skew + 0.5 * (skew @ skew))
-        return R_true, pert @ Rij_clean
+            jnp.eye(d, dtype=dtype) + skew + 0.5 * _mm(skew, skew))
+        return R_true, _mm(pert, Rij_clean)
 
     R_trues, Rijs = jax.vmap(one)(jax.random.split(kt, B))
     return R_trues, RotationSyncData(src=src, dst=dst, Rij=Rijs)
@@ -172,10 +181,11 @@ def random_fleet(key, B: int, n: int, d: int = 3, extra_edges: int = 0,
 
 def _orthonormalize(M):
     """Project (..., d, d) matrices onto O(d) via the polar factor."""
-    g = jnp.swapaxes(M, -1, -2) @ M
+    g = _mm(jnp.swapaxes(M, -1, -2), M)
     w, q = jnp.linalg.eigh(g)
-    inv_sqrt = (q * (1.0 / jnp.sqrt(w))[..., None, :]) @ jnp.swapaxes(q, -1, -2)
-    return M @ inv_sqrt
+    inv_sqrt = _mm(q * (1.0 / jnp.sqrt(w))[..., None, :],
+                   jnp.swapaxes(q, -1, -2))
+    return _mm(M, inv_sqrt)
 
 
 def connection_laplacian_op(data: RotationSyncData, n: int, d: int,
@@ -246,12 +256,11 @@ def spectral_init(data: RotationSyncData, n: int, d: int = 3,
     eigenvectors of the connection Laplacian (via our LOBPCG), reshaped to
     (n, d, d) blocks and projected onto SO(d).
 
-    ``rr_method`` defaults to the one-eigh chol RR (round 4): this is a
-    STANDARD eigenproblem (B = I), the easiest regime for Cholesky
-    whitening, at a loose tau — and the eigh-RR's second QDWH eigh was
-    the dominant share of this stage's cold compile (the same phenomenon
-    that put the certificate on chol-RR, benchmarks/probe_pose_stages.py:
-    cert compile 114 s eigh-RR -> 25 s chol-RR)."""
+    ``rr_method`` defaults to the one-eigh chol RR: this is a STANDARD
+    eigenproblem (B = I), the easiest regime for Cholesky whitening, at a
+    loose tau — and one eigh per iteration instead of two also halves the
+    eigh programs to compile (benchmarks/probe_pose_stages.py splits the
+    pipeline's cold wall by stage)."""
     from ..linalg.lobpcg import lobpcg
 
     if key is None:
@@ -399,7 +408,7 @@ def certify(R: jnp.ndarray, data: RotationSyncData, *,
     eigenproblem.  The diagonal d x d blocks of S are available in closed
     form for the connection-Laplacian objective — ``S_ii = w-deg_i I -
     Lambda_i`` (PSD whenever S is) — so T applies their clamped inverses as
-    one batched (n, d, d) multiply: the TPU-native analog of the
+    one batched (n, d, d) multiply: the batched analog of the
     regularized-Laplacian certificate preconditioners used in the SE-Sync
     ecosystem.  Measured: ~25-30% fewer LOBPCG iterations on wide-kappa
     weighted graphs at tight tolerances (it equilibrates per-vertex scales
@@ -504,7 +513,7 @@ def _lifted_problem(n: int, d: int) -> RiemannianProblem:
     St(p, d) factors (orthonormal *columns*), so the existing STIEFEL
     bundle applies; the cost contracts the connection Laplacian against
     X = stacked Y_i' blocks.  Gradients and Hessian-vector products come
-    from autodiff (the Laplacian application is MXU-shaped (nd, p) work).
+    from autodiff (the Laplacian application is (nd, p) matrix work).
     """
     def f(Y, data):
         p = Y.shape[-2]
@@ -638,7 +647,7 @@ def solve_staircase(data: RotationSyncData, n: int, d: int = 3, *,
 def mean_rotation_error(R: jnp.ndarray, R_true: jnp.ndarray) -> jnp.ndarray:
     """Gauge-aligned mean chordal error |R G - R_true|_F / sqrt(n) where the
     global gauge G is the polar factor of sum_i R_i^T R_true_i."""
-    M = jnp.einsum("nij,nik->jk", R, R_true)
+    M = jnp.einsum("nij,nik->jk", R, R_true, precision=_HI)
     G = _orthonormalize(M)
-    diff = R @ G - R_true
+    diff = _mm(R, G) - R_true
     return jnp.sqrt(jnp.sum(diff * diff) / R.shape[0])

@@ -2,8 +2,9 @@
 
 The reference's algorithms communicate *only* through injected inner products,
 operator applications, and Gram-matrix formation (SURVEY.md section 2.9).
-Those are exactly the reduction points that become XLA collectives on a TPU
-mesh.  This module packages them so solver code never mentions mesh axes:
+Those are exactly the reduction points that become XLA collectives on a
+device mesh.  This module packages them so solver code never mentions mesh
+axes:
 
 - under plain ``jit`` with ``NamedSharding``-annotated arguments, the GSPMD
   partitioner inserts the collectives automatically — solvers need nothing;
@@ -47,7 +48,7 @@ def sharded_gram(S_local: jnp.ndarray, AS_local: jnp.ndarray,
     """Distributed Gram matrix ``S' AS`` for a basis row-sharded over
     ``axis`` (the long-vector / SP-analog seam of SURVEY.md section 2.9,
     mapping the LOBPCG Gram stage ``LOBPCG.h:271-272``): each shard forms its
-    local (k x k) contribution on the MXU, then one small psum rides ICI."""
+    local (k x k) contribution, then one small psum crosses devices."""
     local = jnp.matmul(S_local.T, AS_local,
                        precision=jax.lax.Precision.HIGHEST)
     return jax.lax.psum(local, axis)
@@ -74,7 +75,7 @@ def ring_gram(S_local: jnp.ndarray, AS_local: jnp.ndarray,
     columnwise with ``out_specs=P(None, axis)``, or keep it sharded for a
     column-blocked consumer.
 
-    **Adjudication (VERDICT round 4, missing 4) — row-sharding dominates
+    **Adjudication — row-sharding dominates
     at every feasible shape; this exists as the tested completeness of
     the SURVEY design row, not a production path.**  Per device, the ring
     moves (k-1) messages of m*nx/k words ~= m*nx words per Gram, where

@@ -10,8 +10,8 @@ consensus variable z, A = identity, B = -broadcast, c = 0 (the seam described
 at reference ``ADMM.h:378-402``, distributed per SURVEY.md section 2.9).
 
 The stacked x-block is sharded over the mesh "batch" axis; the z-update is a
-mean over scenarios, which the GSPMD partitioner lowers to an all-reduce over
-ICI — the only cross-chip communication per iteration.
+mean over scenarios, which the GSPMD partitioner lowers to an all-reduce —
+the only cross-device communication per iteration.
 """
 
 from __future__ import annotations

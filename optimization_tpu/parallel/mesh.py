@@ -2,13 +2,13 @@
 
 The framework uses two canonical mesh axes (the reference library is
 single-process — SURVEY.md section 2.9/2.10 specifies these as new,
-first-class TPU components):
+first-class components):
 
 - ``BATCH`` ("batch"): scenario/data parallelism — independent problem
   instances sharded across chips; no cross-instance communication.
 - ``MODEL`` ("model"): block partitioning of a single huge variable/tangent
   vector; inner products and operator applications turn into per-chip work
-  plus ``psum`` collectives over this axis (riding ICI).
+  plus ``psum`` collectives over this axis.
 
 Multi-host entry: call :func:`initialize_distributed` once per process, then
 build meshes over the global device set.

@@ -7,8 +7,8 @@ Strategy (SURVEY.md section 2.9):
   cross-instance communication exists, so this weak-scales trivially.
 - **Block partitioning (TP-analog)**: shard one huge variable/tangent vector
   over the "model" axis.  Under jit, the GSPMD partitioner turns the
-  solver's inner products into per-chip partial reductions + ``psum`` over
-  ICI, and partitions the user's Hv/Jv operators — the JAX analog of the
+  solver's inner products into per-device partial reductions + ``psum``,
+  and partitions the user's Hv/Jv operators — the JAX analog of the
   reference's injected-operator seam.
 """
 

@@ -3,7 +3,7 @@ Nesterov-accelerated, for problems of the form
 
     min  f(x) + g(y)   s.t.   A x + B y = c
 
-TPU-native re-design of the reference ``ADMM`` (``Convex/ADMM.h:265-645``).
+JAX re-design of the reference ``ADMM`` (``Convex/ADMM.h:265-645``).
 The user supplies the two augmented-Lagrangian minimizers ``minLx``/``minLy``
 (reference ``ADMM.h:45-53``) plus the linear operators A, B, A'; the solver
 owns the outer loop as a single jitted ``lax.while_loop``.  Consensus-form

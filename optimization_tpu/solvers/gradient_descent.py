@@ -1,6 +1,6 @@
 """Riemannian gradient descent with Armijo backtracking line search.
 
-TPU-native re-design of the reference ``GradientDescent``
+JAX re-design of the reference ``GradientDescent``
 (``Riemannian/GradientDescent.h:124-434``): the outer iteration and the
 backtracking line search are nested ``lax.while_loop``s inside a single jitted
 program; per-iteration traces are written into preallocated on-device buffers
@@ -16,7 +16,7 @@ Functional contract (matching the reference exactly):
 - identical parameter names/defaults (``GradientDescent.h:44-58``).
 
 Because the whole solve is one XLA program, batching a fleet of instances is
-``jax.vmap(solve, ...)`` and scenario-sharding them across a TPU mesh is a
+``jax.vmap(solve, ...)`` and scenario-sharding them across a device mesh is a
 ``NamedSharding`` on the batched arguments.
 """
 
@@ -110,8 +110,7 @@ def solve(
     For wall-clock limits (``max_computation_time``), per-iteration verbose
     output, ``result.times``, and host observers, run through
     :func:`optimization_tpu.core.driver.drive` — host facilities cannot live
-    inside a compiled loop (and the TPU runtime used in production does not
-    support host callbacks at all).
+    inside a compiled loop without synchronizing every iteration).
     """
     params.validate()
     return _solve(problem, params, user_function, x0, data)

@@ -1,11 +1,11 @@
 """Proximal gradient (ISTA) and accelerated proximal gradient (FISTA).
 
-TPU-native re-design of the reference ``ProximalGradient``
+JAX re-design of the reference ``ProximalGradient``
 (``Convex/ProximalGradient.h:149-448``): minimizes h(x) = f(x) + g(x) with f
 smooth and g prox-friendly, as one jitted ``lax.while_loop`` (with the
 Beck-Teboulle backtracking line search as a bounded inner while-loop).
-Batched scenario fleets are a ``jax.vmap``; scenario sharding over a TPU mesh
-is a ``NamedSharding`` on the batched data.
+Batched scenario fleets are a ``jax.vmap``; scenario sharding over a
+device mesh is a ``NamedSharding`` on the batched data.
 
 Functional contract (matching the reference):
 
@@ -188,8 +188,8 @@ def _solve(problem: CompositeProblem, params: ProximalGradientParams,
         if params.linesearch:
             f_y = jnp.asarray(problem.value_f(y, data))
             # Rounding slack: near convergence F_x - Q(x,y) sinks below the
-            # floating-point resolution of the objective (acute in f32 on
-            # TPU); without this the backtracking loop chatters to failure.
+            # floating-point resolution of the objective (acute in f32);
+            # without this the backtracking loop chatters to failure.
             eps = jnp.finfo(F0.dtype).eps
 
             def violated(c):

@@ -1,6 +1,6 @@
 """Truncated-Newton nonlinear least squares (TNLS) over LSQR.
 
-TPU-native re-design of the reference ``TNLS`` (``Riemannian/TNLS.h:265-765``):
+JAX re-design of the reference ``TNLS`` (``Riemannian/TNLS.h:265-765``):
 minimizes L(x) = |F(x)| for a residual map F from a Riemannian manifold into a
 Euclidean space, with a trust-region outer loop (one jitted ``lax.while_loop``)
 whose subproblems  min_h |gradF(x) h + F(x)|^2, |h| <= Delta  are solved by the

@@ -1,6 +1,6 @@
 """Riemannian truncated-Newton trust-region (TNT) method.
 
-TPU-native re-design of the reference ``TNT`` (``Riemannian/TNT.h:242-689``,
+JAX re-design of the reference ``TNT`` (``Riemannian/TNT.h:242-689``,
 Algorithm 6.1.1 of Conn-Gould-Toint): the outer trust-region loop is a jitted
 ``lax.while_loop`` whose inner subproblem solve is the ``stpcg`` while-loop
 engine, so a full solve — Hessian-vector products, CG recurrences, gain-ratio
@@ -61,34 +61,24 @@ class TNTParams(SmoothOptimizerParams):
     theta: float = 0.5
     preconditioned_gradient_tolerance: float = 1e-6
     Delta_tolerance: float = 1e-6
-    # New (no reference counterpart): use the fused Pallas reduction kernels
-    # inside STPCG.  Valid only for single-device flat-array tangent spaces
-    # with the Euclidean metric and no preconditioner (see stpcg.fused_dots).
-    # Measured on TPU v5e (n=2^24 Rayleigh-quotient TNT): the pallas_call
-    # boundary blocks XLA's cross-op fusion inside the CG loop and the net
-    # effect is ~20% SLOWER than the default XLA path, even though the
-    # isolated kernels are faster; kept as an opt-in for future runtimes.
-    fused_dots: bool = False
     # New (no reference counterpart): CG iterations advanced per reduction
     # sync in the flat engine (linalg/flat_cg.py s_steps; only used when
     # problem.flat_qm is set).  Default 1 = the pair-deferred engine, the
-    # measured-best choice for huge-n subproblems (single XLA fusion per
-    # iteration); s >= 2 (the coefficient-space s-step engine) pays off
-    # only for small-n / cheap-operator subproblems where the per-sync
-    # charge dominates (see flat_cg.py module docstring measurements).
+    # choice for huge-n subproblems (single XLA fusion per iteration);
+    # s >= 2 (the coefficient-space s-step engine) can pay off only for
+    # small-n / cheap-operator subproblems where the per-sync charge
+    # dominates (see flat_cg.py module docstring).
     flat_s_steps: int = 1
     # New (no reference counterpart): drop the flat engine's kernel-of-H
     # epsilon safeguard (linalg/flat_cg.py stpcg_flat kernel_check),
     # pruning two reduction outputs + one A-application from the fused
-    # pass.  Measured on THIS runtime it is 1.7x SLOWER (v5e bf16 n=2^24:
-    # 318 vs 184 us/CG-iter — the narrower reduction group loses XLA's
-    # fusion sweet spot; benchmarks/probe_ugroup.py), so the default
-    # stays True everywhere; the flag is a tested, semantically-safe
-    # opt-in for runtimes whose cost model genuinely charges per op.
+    # pass.  No device measured yet has gained from it
+    # (benchmarks/probe_ugroup.py), so the default stays True everywhere;
+    # the flag is a tested, semantically-safe opt-in.
     # Only valid when the quadratic model certifies no eps-kernel along
     # CG directions; pair engine (flat_s_steps=1) only.
     flat_kernel_check: bool = True
-    # New (documented TPU-native extension, like the dm > 0 guard in
+    # New (documented extension, like the dm > 0 guard in
     # step_decision): sub-epsilon FLOOR ACCEPTANCE.  Near the optimum the
     # true per-step decrease can fall below the objective's floating-point
     # resolution while the gradient is still large in high-curvature
@@ -188,7 +178,7 @@ def step_decision(rho, dm, eta1, eta2):
 
     Reference semantics (``TNT.h:511-532,590-603``): accept iff
     ``!isnan(rho) && rho > eta1``; a NaN rho rejects and shrinks.  One
-    TPU-native extension: ``dm > 0`` is guaranteed for an exact-arithmetic
+    extension: ``dm > 0`` is guaranteed for an exact-arithmetic
     STPCG/LSQR step, so a non-positive model decrease is a numerical
     failure flag treated exactly like a NaN rho.  The reference's f64
     arithmetic never trips the hole; in f32, ``df < 0`` with ``dm < 0``
@@ -327,13 +317,11 @@ def _solve(problem: RiemannianProblem, params: TNTParams,
         in_flat_branch = True
         if problem.flat_solve is not None and (
                 problem.precon is None or problem.flat_prec is not None):
-            # bring-your-own subproblem engine (e.g. the streamed
-            # whole-loop Pallas kernel, kernels/streamed_cg.py).  A
-            # preconditioned problem stays on this branch iff it supplies
-            # the elementwise flat_prec seam; the flat_solve closure is
-            # responsible for folding it (stpcg_flat_streamed's
-            # prec_chunk/prec — the same hot-loop-native preconditioning
-            # contract as the XLA flat engine below).
+            # bring-your-own subproblem engine.  A preconditioned problem
+            # stays on this branch iff it supplies the elementwise
+            # flat_prec seam; the flat_solve closure is responsible for
+            # folding it (e.g. ``stpcg_flat(prec=)``, the same contract as
+            # the flat engine below).
             cg = problem.flat_solve(grad, x, data, st.aux, st.Delta,
                                     params)
             flat_dm = cg.predicted_decrease
@@ -370,7 +358,7 @@ def _solve(problem: RiemannianProblem, params: TNTParams,
             cg = stpcg(grad, Hv, inner, st.Delta,
                        max_iterations=params.max_TPCG_iterations,
                        kappa_fgr=params.kappa_fgr, theta=params.theta,
-                       precon=precon_fn, fused_dots=params.fused_dots)
+                       precon=precon_fn)
             # dm by the engine's scalar recurrence — algebraically the
             # reference's -<g,h> - 1/2 <h,Hh> (TNT.h:511-521) without a
             # second Hv: one fewer operator application per outer

@@ -1,7 +1,7 @@
 """Host-chunked driver: exactness of resume, wall-clock stop, times/verbose.
 
 The reference checks the wall clock and prints at the top of every iteration
-(``TNT.h:447-471``); the TPU-native equivalent is host-chunked stepping
+(``TNT.h:447-471``); the compiled-loop equivalent is host-chunked stepping
 (core/driver.py).  These tests pin the driver's central claim: a chunked run
 visits exactly the iterates of a monolithic run.
 """

@@ -44,11 +44,12 @@ class TestParityWithGeneric:
         np.testing.assert_allclose(float(res.update_step_M_norm),
                                    np.linalg.norm(s_direct), rtol=1e-8)
 
-    def test_truncation_contract(self):
+    @pytest.mark.parametrize("body_kind", ["single", "pair"])
+    def test_truncation_contract(self, body_kind):
         d, U, B, g, A0, Hv, Um = _diag_lowrank(seed=3)
         kappa = 0.1
         res = stpcg_flat(g, A0, U, B, 1e9, max_iterations=1000,
-                         kappa_fgr=kappa, theta=0.5)
+                         kappa_fgr=kappa, theta=0.5, body_kind=body_kind)
         r = np.asarray(Hv(res.s) + g)
         assert np.linalg.norm(r) < kappa * float(jnp.linalg.norm(g))
 
@@ -66,7 +67,8 @@ class TestParityWithGeneric:
                                        float(ref.update_step_M_norm),
                                        rtol=1e-8)
 
-    def test_negative_curvature_boundary(self):
+    @pytest.mark.parametrize("body_kind", ["single", "pair"])
+    def test_negative_curvature_boundary(self, body_kind):
         n = 200
         rng = np.random.default_rng(7)
         d = jnp.asarray(rng.uniform(-2.0, 5.0, n))   # indefinite
@@ -76,7 +78,7 @@ class TestParityWithGeneric:
         ref = stpcg(g, A0, DOT, Delta, max_iterations=500, kappa_fgr=1e-8,
                     theta=0.999)
         res = stpcg_flat(g, A0, None, None, Delta, max_iterations=500,
-                         kappa_fgr=1e-8, theta=0.999)
+                         kappa_fgr=1e-8, theta=0.999, body_kind=body_kind)
         np.testing.assert_allclose(float(res.update_step_M_norm), Delta,
                                    rtol=1e-10)
         np.testing.assert_allclose(float(jnp.linalg.norm(res.s)), Delta,
@@ -131,7 +133,8 @@ class TestParityWithGeneric:
             np.testing.assert_allclose(np.asarray(res.s), np.asarray(ref.s),
                                        rtol=1e-5, atol=1e-8)
 
-    def test_bf16_storage(self):
+    @pytest.mark.parametrize("body_kind", ["single", "pair"])
+    def test_bf16_storage(self, body_kind):
         n = 1024
         rng = np.random.default_rng(2)
         d = jnp.asarray(rng.uniform(1.0, 20.0, n), jnp.float32)
@@ -139,7 +142,7 @@ class TestParityWithGeneric:
         g = g32.astype(jnp.bfloat16)
         A0 = lambda v: d * v.astype(jnp.float32)
         res = stpcg_flat(g, A0, None, None, 1e9, max_iterations=200,
-                         kappa_fgr=0.05, theta=0.5)
+                         kappa_fgr=0.05, theta=0.5, body_kind=body_kind)
         assert res.s.dtype == jnp.bfloat16
         ref = stpcg(g32, lambda v: d * v, DOT, 1e9, max_iterations=200,
                     kappa_fgr=0.05, theta=0.5)
@@ -441,7 +444,7 @@ def test_adjoint_form_u_entry_matches_stored():
     passed stored, up to reassociation rounding — the per-element
     products differ by one multiplication order, so a knife-edge
     truncation may shift by one iteration while the step agrees to
-    rounding.  This is the TPU-native form sphere_rayleigh_flat emits
+    rounding.  This is the form sphere_rayleigh_flat emits
     for y = 2Ax so the engine's reductions read only x and no hoisted
     loop-invariant y is materialized (flat_cg._norm_U)."""
     n = 600
@@ -475,9 +478,7 @@ def test_adjoint_form_u_entry_matches_stored():
 @pytest.mark.parametrize("body_kind", ["single", "pair"])
 def test_body_kinds_match_generic(body_kind):
     """Both pair-engine loop bodies (single-iteration and pair-deferred)
-    reproduce the generic STPCG iterates exactly; "auto" picks between
-    them by the measured VMEM-residency boundary (flat_cg.resolve_body)
-    without changing semantics."""
+    reproduce the generic STPCG iterates exactly."""
     d, U, B, g, A0, Hv, Um = _diag_lowrank(seed=9)
     for Delta in (1e9, 0.4, 0.04):
         ref = stpcg(g, Hv, DOT, Delta, max_iterations=300,
@@ -490,18 +491,24 @@ def test_body_kinds_match_generic(body_kind):
 
 
 def test_resolve_body_boundary():
-    from optimization_tpu.linalg.flat_cg import resolve_body
-    assert resolve_body(1 << 24, jnp.bfloat16) == "single"   # 128 MiB
-    assert resolve_body(1 << 24, jnp.float32) == "pair"      # 256 MiB
-    assert resolve_body(1 << 23, jnp.float32) == "single"
-    assert resolve_body(1 << 10, jnp.float64) == "single"
+    """The loop body is no longer chosen by size: the pair body is the
+    default (it was faster in both headline tiers at n = 2^24 on the H100),
+    and a body kind other than single/pair is refused."""
+    d, U, B, g, A0, Hv, Um = _diag_lowrank(seed=9)
+    kw = dict(max_iterations=300, kappa_fgr=0.05, theta=0.5)
+    dflt = stpcg_flat(g, A0, U, B, 0.4, **kw)
+    pair = stpcg_flat(g, A0, U, B, 0.4, body_kind="pair", **kw)
+    assert int(dflt.num_iterations) == int(pair.num_iterations)
+    np.testing.assert_array_equal(np.asarray(dflt.s), np.asarray(pair.s))
+    with pytest.raises(ValueError, match="body_kind"):
+        stpcg_flat(g, A0, U, B, 0.4, body_kind="auto", **kw)
 
 
 @pytest.mark.parametrize("body_kind", ["single", "pair"])
 def test_kernel_check_off_matches_generic(body_kind):
     """``kernel_check=False`` (drop the kernel-of-H epsilon safeguard and
-    its |q|^2 recurrence + nr/pa anchor dots — the VMEM-resident-regime
-    op-count cut, benchmarks/probe_ugroup.py) must be bit-equivalent on
+    its |q|^2 recurrence + nr/pa anchor dots — an op-count cut,
+    benchmarks/probe_ugroup.py) must be bit-equivalent on
     every subproblem without an eps-kernel direction: PD, indefinite
     (negative-curvature boundary exits go through kappa <= 0, untouched),
     and trust-region-binding regimes, on both loop bodies."""
@@ -681,3 +688,171 @@ class TestPreconditionedFlat:
         np.testing.assert_allclose(float(r_flat.f), float(r_gen.f),
                                    rtol=1e-8)
         np.testing.assert_allclose(float(r_flat.f), 1.0, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# The headline structure: the sphere Rayleigh-quotient Hessian
+# P H P = A0 + U B U' (sphere_rayleigh_flat) against the generic STPCG on
+# the one-sided projected form, across the reference STPCG contract
+# (``IterativeSolvers.h:166-426``): interior/truncation,
+# trust-region-boundary and negative-curvature exits, for both loop bodies.
+
+SPHERE_N = 4096
+DELTAS = [1e6, 0.5, 0.02]
+BODIES = ["single", "pair"]
+
+
+def _sphere(seed=0, spread=25.0, rq=None):
+    """(A_elem, x, g, flat structure, generic Hv) at a random point of
+    S^{n-1}; ``rq`` replaces the Rayleigh quotient of the Hessian's shift
+    (a value below 2 min(a) makes the operator positive definite)."""
+    n = SPHERE_N
+    b = spread / (n - 1)
+    a = 1.0 + b * jnp.arange(n, dtype=jnp.float64)
+    A_elem = lambda v: a * v
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=n))
+    x = x / jnp.linalg.norm(x)
+    y = 2.0 * A_elem(x)
+    g = y - DOT(x, y) * x                            # tangent gradient
+    A0, U, B, rq_x = sphere_rayleigh_flat(x, A_elem, rq=rq)
+    shift = rq_x if rq is None else rq
+    proj = lambda v: v - DOT(x, v) * x
+    Hv = lambda v: proj(2.0 * A_elem(v)) - shift * v
+    return A_elem, x, g, (A0, U, B), Hv
+
+
+@pytest.mark.parametrize("body_kind", BODIES)
+@pytest.mark.parametrize("Delta", DELTAS)
+def test_sphere_matches_generic(Delta, body_kind):
+    A_elem, x, g, (A0, U, B), Hv = _sphere()
+    kw = dict(max_iterations=300, kappa_fgr=0.05, theta=0.5)
+    ref = stpcg(g, Hv, DOT, Delta, **kw)
+    res = stpcg_flat(g, A0, U, B, Delta, body_kind=body_kind, **kw)
+    assert int(res.num_iterations) == int(ref.num_iterations)
+    np.testing.assert_allclose(np.asarray(res.s), np.asarray(ref.s),
+                               rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(float(res.update_step_M_norm),
+                               float(ref.update_step_M_norm), rtol=1e-8)
+    dm = float(-DOT(g, res.s) - 0.5 * DOT(res.s, Hv(res.s)))
+    np.testing.assert_allclose(float(res.predicted_decrease), dm,
+                               rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("body_kind", BODIES)
+@pytest.mark.parametrize("Delta", DELTAS)
+def test_sphere_init_threading_parity(Delta, body_kind):
+    """init=flat_init_dots(...) is bit-identical to the engine's own
+    pre-loop dot group on the sphere structure."""
+    from optimization_tpu.linalg.flat_cg import flat_init_dots
+
+    A_elem, x, g, (A0, U, B), Hv = _sphere(seed=4)
+    kw = dict(max_iterations=300, kappa_fgr=0.05, theta=0.5,
+              body_kind=body_kind)
+    ref = stpcg_flat(g, A0, U, B, Delta, **kw)
+    res = stpcg_flat(g, A0, U, B, Delta, init=flat_init_dots(g, A0, U, B),
+                     **kw)
+    assert int(res.num_iterations) == int(ref.num_iterations)
+    np.testing.assert_array_equal(np.asarray(res.s), np.asarray(ref.s))
+    np.testing.assert_array_equal(float(res.predicted_decrease),
+                                  float(ref.predicted_decrease))
+
+
+@pytest.mark.parametrize("body_kind", BODIES)
+@pytest.mark.parametrize("Delta", DELTAS)
+def test_sphere_preconditioned_parity(Delta, body_kind):
+    """prec= (Jacobi on the elementwise part, folded symmetrically) ==
+    the generic engine with the same M^{-1}."""
+    A_elem, x, g, (A0, U, B), Hv = _sphere(seed=6, spread=400.0)
+    dvec = 2.0 * A_elem(jnp.ones(SPHERE_N))
+    prec = lambda v: v * jax.lax.rsqrt(dvec)
+    gen_precon = lambda r: (r / dvec, None)
+    kw = dict(max_iterations=300, kappa_fgr=0.05, theta=0.5)
+    ref = stpcg(g, Hv, DOT, Delta, precon=gen_precon, **kw)
+    res = stpcg_flat(g, A0, U, B, Delta, prec=prec, body_kind=body_kind,
+                     **kw)
+    assert int(res.num_iterations) == int(ref.num_iterations)
+    np.testing.assert_allclose(np.asarray(res.s), np.asarray(ref.s),
+                               rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(float(res.update_step_M_norm),
+                               float(ref.update_step_M_norm), rtol=1e-6)
+
+
+@pytest.mark.parametrize("body_kind", BODIES)
+@pytest.mark.parametrize("Delta", [1e6, 1.2])
+def test_sphere_interior_multi_iteration_parity(Delta, body_kind):
+    """Many interior CG iterations on a positive-definite shift of the
+    sphere structure: the carried recurrences track the generic engine,
+    and an interior exit meets the truncation target."""
+    kappa = 1e-3
+    A_elem, x, g, (A0, U, B), Hv = _sphere(seed=7, rq=0.5)
+    kw = dict(max_iterations=400, kappa_fgr=kappa, theta=0.9)
+    ref = stpcg(g, Hv, DOT, Delta, **kw)
+    res = stpcg_flat(g, A0, U, B, Delta, body_kind=body_kind, **kw)
+    assert int(res.num_iterations) == int(ref.num_iterations) > 3
+    # the restructured recurrences round differently, and many iterations
+    # amplify that: agreement to 1e-7 of |s|
+    np.testing.assert_allclose(
+        np.asarray(res.s), np.asarray(ref.s),
+        atol=1e-7 * float(jnp.linalg.norm(ref.s)))
+    if Delta > 10.0:                         # interior truncation exit
+        r = np.asarray(Hv(res.s) + g)
+        assert np.linalg.norm(r) < kappa * float(jnp.linalg.norm(g))
+    else:                                    # trust-region boundary
+        np.testing.assert_allclose(float(jnp.linalg.norm(res.s)), Delta,
+                                   rtol=1e-8)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True],
+                         ids=["plain", "prec"])
+def test_tnt_flat_solve_seam(preconditioned):
+    """TNT's bring-your-own-engine seam (``RiemannianProblem.flat_solve``)
+    driven by ``stpcg_flat`` with a pinned loop body follows the same
+    trajectory as the built-in flat path, with and without the elementwise
+    preconditioner it must fold itself."""
+    from optimization_tpu import RiemannianProblem
+    from optimization_tpu.linalg.flat_cg import sphere_rayleigh_step
+    from optimization_tpu.manifolds import sphere
+    from optimization_tpu.solvers import tnt
+
+    n = 2048
+    d = jnp.linspace(1.0, 1e4 if preconditioned else 1e3, n)
+    A_elem = lambda v: d * v
+    M = sphere()
+    f = lambda x, dd: jnp.dot(x, A_elem(x))
+    grad = lambda x, dd: M.proj(x, 2.0 * A_elem(x))
+    prec_elem = lambda v: v * jax.lax.rsqrt(2.0 * d)
+
+    def flat_qm(x, dd, aux=None):
+        rq = aux.rq if aux is not None else None
+        A0, U, B, _ = sphere_rayleigh_flat(x, A_elem, rq=rq)
+        init = aux.init if (aux is not None and not preconditioned) else None
+        return A0, U, B, init
+
+    def flat_solve(g, x, dd, aux, Delta, params):
+        A0, U, B, init = flat_qm(x, dd, aux)
+        return stpcg_flat(g, A0, U, B, Delta,
+                          max_iterations=params.max_TPCG_iterations,
+                          kappa_fgr=params.kappa_fgr, theta=params.theta,
+                          init=init, body_kind="pair",
+                          prec=prec_elem if preconditioned else None)
+
+    extra = {}
+    if preconditioned:
+        extra = dict(flat_prec=lambda x, dd: prec_elem,
+                     precon=lambda x, v, dd: M.proj(x, v / (2.0 * d)))
+    se = sphere_rayleigh_step(A_elem, with_init=not preconditioned)
+    params = tnt.TNTParams(
+        max_iterations=60, max_TPCG_iterations=100, gradient_tolerance=1e-8,
+        relative_decrease_tolerance=0.0, stepsize_tolerance=0.0,
+        preconditioned_gradient_tolerance=0.0)
+    x0 = M.rand(jax.random.PRNGKey(12), n)
+    seam = RiemannianProblem(f=f, manifold=M, grad=grad, flat_qm=flat_qm,
+                             flat_solve=flat_solve, step_eval=se, **extra)
+    built_in = RiemannianProblem(f=f, manifold=M, grad=grad, flat_qm=flat_qm,
+                                 step_eval=se, **extra)
+    r_seam = tnt.solve(seam, x0, params, data=None)
+    r_ref = tnt.solve(built_in, x0, params, data=None)
+    np.testing.assert_allclose(float(r_seam.f), 1.0, atol=1e-6)
+    np.testing.assert_allclose(float(r_seam.f), float(r_ref.f), rtol=1e-10)
+    assert abs(int(r_seam.num_iterations) - int(r_ref.num_iterations)) <= 1

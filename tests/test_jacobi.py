@@ -1,7 +1,7 @@
 """Batched parallel-Jacobi symmetric eigensolver (linalg/jacobi.py).
 
 The reference defers small dense eigenproblems to Eigen's selfadjoint solver
-(e.g. ``LinearAlgebra/LOBPCG.h:53-62``); ``jacobi_eigh`` is the TPU-native
+(e.g. ``LinearAlgebra/LOBPCG.h:53-62``); ``jacobi_eigh`` is a
 replacement whose cost batches for free (fleet Rayleigh-Ritz).  Contract
 tested here: the ``jnp.linalg.eigh`` contract (ascending eigenvalues,
 orthonormal columns, A V = V diag(w)) over batches, odd sizes, graded and

@@ -118,7 +118,7 @@ def test_validation():
 
 
 def test_f32_ill_conditioned_preconditioned():
-    """Regression for the TPU failure mode: in pure f32 with a wide spectrum
+    """Regression for an f32 failure mode: in pure f32 with a wide spectrum
     the Cholesky Rayleigh-Ritz collapses and 1/eps-scale soft-lock sentinels
     destroy eigh accuracy under norm-normalizing eigh implementations.  The
     whitened RR + moderate negative sentinels must converge in a handful of

@@ -1,7 +1,7 @@
 """Optional real multi-host smoke tests (SURVEY.md section 4, plan (c)).
 
 Gated behind RUN_MULTIHOST: these require a real multi-process JAX cluster
-(e.g. a TPU pod slice with one process per host).  Launch on every host:
+(e.g. one process per host of a GPU cluster).  Launch on every host:
 
     RUN_MULTIHOST=1 JAX_COORD=<host0>:8476 JAX_NUM_PROC=<N> JAX_PROC_ID=<i> \
         python -m pytest tests/test_multihost.py -q

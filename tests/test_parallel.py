@@ -172,7 +172,7 @@ def test_shard_map_collectives():
 def test_sharded_basis_lobpcg_matches_single_device():
     """SP-analog (SURVEY.md 2.9): LOBPCG with the basis row-sharded over the
     "model" axis.  Under jit + NamedSharding the Gram GEMMs lower to
-    per-shard partials + psum over ICI; results must match the unsharded
+    per-shard partials + psum; results must match the unsharded
     solve to tolerance."""
     import jax
     import jax.numpy as jnp

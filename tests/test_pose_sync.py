@@ -131,6 +131,43 @@ def test_pose_graph_certification():
     assert bool(res.certificate.certified)
 
 
+@pytest.mark.parametrize("n", [300, 1000])
+def test_marginalized_objective_f32_matches_f64(n):
+    """The marginalized objective, compiled in f32, agrees with its f64
+    value near the optimum of a graph with translations of scale 5 and
+    noise 0.01.  Both terms are sums of squared residuals; inner-product
+    forms of them cancel O(|t|^2) down to O(noise^2), which left ~1e-3
+    relative error in f32 and let the trust region accept steps on
+    rounding."""
+    rng = np.random.default_rng(n)
+    R_true = np.asarray(rs.ROTATIONS.rand(jax.random.PRNGKey(n), n, D, D),
+                        np.float64)
+    t_true = 5.0 * rng.normal(size=(n, D))
+    src = np.concatenate([np.arange(n - 1), rng.integers(0, n, 2 * n)])
+    dst = np.concatenate([np.arange(1, n), rng.integers(0, n, 2 * n)])
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    Rt = np.swapaxes(R_true, -1, -2)
+    Mij = Rt[src] @ R_true[dst]
+    w = 0.01 * rng.normal(size=(len(src), D, D))
+    skew = 0.5 * (w - np.swapaxes(w, -1, -2))
+    Mij = np.asarray(rs._orthonormalize(
+        jnp.asarray(np.eye(D) + skew + 0.5 * skew @ skew))) @ Mij
+    tij = (np.einsum("eij,ej->ei", Rt[src], t_true[dst] - t_true[src])
+           + 0.01 * rng.normal(size=(len(src), D)))
+    Q = jnp.asarray(Rt + 0.003 * rng.normal(size=Rt.shape))
+    Q = rs._orthonormalize(Q)            # a point near the optimum
+
+    def value(dtype):
+        problem, _, _ = pose_sync.marginalized_problem(
+            jnp.asarray(src, jnp.int32), jnp.asarray(dst, jnp.int32),
+            jnp.asarray(Mij, dtype), jnp.asarray(tij, dtype), n=n)
+        return float(jax.jit(problem.f)(Q.astype(dtype), None))
+
+    f64 = value(jnp.float64)
+    assert abs(value(jnp.float32) - f64) <= 1e-4 * f64, f64
+
+
 @pytest.mark.slow
 def test_se2_pose_graph_pipeline(tmp_path):
     """SE(2) end-to-end: write an EDGE_SE2 g2o file, load, solve."""

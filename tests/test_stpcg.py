@@ -11,7 +11,6 @@
 - Reported |s|_M matches an independently computed M-norm in every case.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -236,29 +235,6 @@ def test_kernel_direction_after_progress():
     m = float(jnp.dot(g, res.s) + 0.5 * jnp.dot(res.s, H * res.s))
     assert m < 0  # model strictly decreased
     assert abs(float(jnp.sqrt(jnp.dot(res.s, res.s))) - Delta) < 1e-6
-
-
-def test_fused_dots_matches_generic():
-    """The fused-Pallas reduction path must visit the same iterates as the
-    generic path (interpret mode on CPU; compiled on TPU)."""
-    n = 1000
-    key1, key2 = jax.random.split(jax.random.PRNGKey(5))
-    d = jnp.linspace(1.0, 50.0, n).astype(jnp.float32)
-    g = jax.random.normal(key1, (n,), jnp.float32)
-    Hop = lambda v: d * v
-    ref = stpcg(g, Hop, inner, 100.0, max_iterations=50,
-                kappa_fgr=1e-6, theta=0.9)
-    fused = stpcg(g, Hop, inner, 100.0, max_iterations=50,
-                  kappa_fgr=1e-6, theta=0.9, fused_dots=True)
-    assert int(fused.num_iterations) == int(ref.num_iterations)
-    np.testing.assert_allclose(np.asarray(fused.s), np.asarray(ref.s),
-                               rtol=2e-4, atol=2e-5)
-
-
-def test_fused_dots_rejects_pytree():
-    with pytest.raises(ValueError):
-        stpcg({"a": small_g}, lambda v: v, lambda u, v: 0.0, 1.0,
-              fused_dots=True)
 
 
 def test_predicted_decrease_matches_explicit_dm():
